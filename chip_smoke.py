@@ -16,10 +16,15 @@ non-zero):
    16,000,000 nonzeros.  MTTKRP (R=64), TTMc3 (R=S=16) and TTTP3 (R=64)
    run through ``execute_plan`` on ``"cuda"`` (MTTKRP also on
    ``"cuda-splitk"``), each held against the eager ``"torch"`` engine.
-   Launch counts are zeroed just before each run and read just after.
-   Each path is also traced once with ``torch.profiler``: device time by
-   kernel and the device's idle share (``PROFILE`` lines).
-4. Per kernel, on the inputs the main path gave it: the kernel against
+   Each path is timed, its peak memory read and one call traced with
+   ``torch.profiler`` (device time by kernel and the device's idle share:
+   ``PROFILE`` lines) with nothing recorded; then one counted run, with
+   the launch counts zeroed just before it and read just after, records
+   the inputs of every kernel it launches.
+4. Per kernel, on the inputs the main path gave it — every stage the
+   lowerings ran and every segment-combine call (the split-K combine and
+   the sorted segment sums of the ``segsum`` strategy and the ``torch``
+   engine): the kernel against
    its plain PyTorch version (tolerance ``1e-4 * max(1, max|plain|)``:
    float32 with another summation order), kernel / plain / library-call
    times (CUDA events, median of 10 after 2 warm-ups), and the least time
@@ -129,27 +134,66 @@ def recording_lowerings(sink: dict):
     from repro_torch.kernels.codegen.ir import (Lowering, get_lowering,
                                                 register_lowering)
 
+    # the sink lives on the instances, which ``restore`` drops: a class
+    # sits in a reference cycle, so methods closing over ``sink`` would
+    # keep the recorded tensors alive until a gc pass
     class Recorder(Lowering):
-        def __init__(self, inner):
-            self.inner, self.target = inner, inner.target
+        def __init__(self, inner, sink):
+            self.inner, self.target, self.sink = inner, inner.target, sink
 
         def reduce(self, ir, *args):
-            sink.setdefault(("reduce", self.target, ir.stage.expr),
-                            (ir, *args))
+            self.sink.setdefault(("reduce", self.target, ir.stage.expr),
+                                 (ir, *args))
             return self.inner.reduce(ir, *args)
 
         def product(self, ir, *args):
-            sink.setdefault(("product", self.target, ir.stage.expr),
-                            (ir, *args))
+            self.sink.setdefault(("product", self.target, ir.stage.expr),
+                                 (ir, *args))
             return self.inner.product(ir, *args)
 
     inners = [get_lowering(t) for t in ("hopper", "hopper-splitk")]
     for inner in inners:
-        register_lowering(Recorder(inner))
+        register_lowering(Recorder(inner, sink))
     return lambda: [register_lowering(i) for i in inners]
 
 
-def stage_nbytes(stage, padded, nrows: int, itemsize: int) -> int:
+# every module that calls the segment-combine kernel, and what it sums
+COMBINE_CALLERS = {"repro_torch.core.executor": "segment sum",
+                   "repro_torch.kernels.codegen.lower_gpu": "split-K"}
+
+
+def recording_combines(sink: dict):
+    """Shadow ``segment_combine`` in each module that calls it with a
+    recorder that keeps the first inputs of each (caller, rows shape,
+    nseg) and delegates.  The returned ``restore()`` puts the kernel
+    wrapper back and returns how many recorded calls launched the
+    kernel."""
+    import importlib
+    mods = [importlib.import_module(m) for m in COMBINE_CALLERS]
+    inner = mods[0].segment_combine
+    launched = [0]
+
+    def recorder(site):
+        def combine(rows, ptr, nseg):
+            sink.setdefault((site, tuple(rows.shape), nseg),
+                            (rows, ptr, nseg))
+            launched[0] += bool(rows.is_cuda and nseg * rows.shape[1])
+            return inner(rows, ptr, nseg)
+        return combine
+
+    for mod in mods:
+        if mod.segment_combine is not inner:
+            raise AssertionError(f"{mod.__name__} calls another combine")
+        mod.segment_combine = recorder(COMBINE_CALLERS[mod.__name__])
+
+    def restore() -> int:
+        for mod in mods:
+            mod.segment_combine = inner
+        return launched[0]
+    return restore
+
+
+def stage_nbytes(stage, nrows: int, itemsize: int) -> int:
     return sum((nrows if op.fiber else 1) * op.flat_dim * itemsize
                for op in stage.operands)
 
@@ -165,13 +209,11 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def measure_kernels(captured: dict, spec_name: str) -> list[dict]:
-    """Each captured kernel call: kernel vs plain on the same inputs,
-    then kernel / plain / library times and the bound."""
+def stage_entries(captured: dict) -> list[tuple]:
+    """Each captured stage call as (stem, name, stage, target, kernel,
+    plain, library or None, bytes, operations)."""
     import torch
     from repro_torch.kernels.codegen import lower_gpu, stages
-    from repro_torch.kernels.segment import (segment_combine,
-                                             segment_combine_plain)
     out = []
     for (kind, target, expr), (ir, *args) in captured.items():
         if kind == "product" and target == "hopper-splitk":
@@ -187,93 +229,104 @@ def measure_kernels(captured: dict, spec_name: str) -> list[dict]:
             vals = [r.reshape(((nrows,) if op.fiber else ()) + op.shape)
                     for r, op in zip(rows, st.operands)]
 
-            def kern():
+            def kern(st=st, tables=tables, rows=rows, dtype=dtype):
                 return stages.run_product_stage(st, tables, rows, dtype)
 
-            def plain():
+            def plain(st=st, rows=rows, dtype=dtype):
                 return stages.run_product_stage_plain(st, rows, dtype)
 
-            def lib():
+            def lib(st=st, vals=vals):
                 return torch.einsum(st.expr, *vals)
 
-            nbytes = stage_nbytes(st, rows, nrows, isz) + \
+            nbytes = stage_nbytes(st, nrows, isz) + \
                 table_nbytes(tables) + nrows * w * isz
-            ops = 2 * nrows * nterms
-            entries = [("product", "K2 product", kern, plain, lib,
-                        nbytes, ops)]
+            out.append(("product", "K2 product", expr, target, kern, plain,
+                        lib, nbytes, 2 * nrows * nterms))
+            continue
+        tables, block_ptr, mask, padded, dtype = args
+        P = mask.shape[0]
+        isz = torch.empty((), dtype=dtype).element_size()
+        nterms = int(tables.a_idx.numel())
+        in_bytes = stage_nbytes(st, P, isz) + P * 4 + table_nbytes(tables)
+        ops = 2 * P * nterms + P * w
+        if target == "hopper":
+            def kern(st=st, tables=tables, block_ptr=block_ptr, mask=mask,
+                     padded=padded, dtype=dtype):
+                return stages.run_reduce_stage(st, tables, block_ptr, mask,
+                                               padded, dtype)
+
+            def plain(st=st, block_ptr=block_ptr, mask=mask, padded=padded,
+                      dtype=dtype):
+                return stages.run_reduce_stage_plain(st, block_ptr, mask,
+                                                     padded, dtype)
+
+            out.append(("reduce", "K1 reduce", expr, target, kern, plain,
+                        None, in_bytes + block_ptr.numel() * 8
+                        + st.nseg * w * isz, ops))
         else:
-            tables, block_ptr, mask, padded, dtype = args
-            P = mask.shape[0]
-            nblocks = P // st.block
-            isz = torch.empty((), dtype=dtype).element_size()
-            nterms = int(tables.a_idx.numel())
-            in_bytes = stage_nbytes(st, padded, P, isz) + P * 4 + \
-                table_nbytes(tables)
-            ops = 2 * P * nterms + P * w
-            if target == "hopper":
-                def kern():
-                    return stages.run_reduce_stage(st, tables, block_ptr,
-                                                   mask, padded, dtype)
+            def kern(st=st, tables=tables, mask=mask, padded=padded):
+                return lower_gpu.splitk_partials(st, tables, mask, padded)
 
-                def plain():
-                    return stages.run_reduce_stage_plain(st, block_ptr,
-                                                         mask, padded, dtype)
+            def plain(st=st, mask=mask, padded=padded):
+                return stages.block_partials_plain(st, mask, padded)
 
-                nbytes = in_bytes + block_ptr.numel() * 8 + st.nseg * w * isz
-                entries = [("reduce", "K1 reduce", kern, plain, None,
-                            nbytes, ops)]
-            else:
-                parts = lower_gpu.splitk_partials(st, tables, mask, padded)
+            out.append(("splitk", "K4 split-K partials", expr, target, kern,
+                        plain, None,
+                        in_bytes + P // st.block * w * isz, ops))
+    return out
 
-                def kern_p():
-                    return lower_gpu.splitk_partials(st, tables, mask,
-                                                     padded)
 
-                def plain_p():
-                    return stages.block_partials_plain(st, mask, padded)
+def combine_entries(captured: dict, backend: str) -> list[tuple]:
+    """Each captured segment-combine call, as :func:`stage_entries`."""
+    import torch
+    from repro_torch.kernels.segment import (segment_combine,
+                                             segment_combine_plain)
+    out = []
+    for (site, (n, w), _), (rows, ptr, nseg) in captured.items():
 
-                def kern_c():
-                    return segment_combine(parts, block_ptr, st.nseg)
+        def kern(rows=rows, ptr=ptr, nseg=nseg):
+            return segment_combine(rows, ptr, nseg)
 
-                def plain_c():
-                    return segment_combine_plain(parts, block_ptr, st.nseg)
+        def plain(rows=rows, ptr=ptr, nseg=nseg):
+            return segment_combine_plain(rows, ptr, nseg)
 
-                def lib_c():
-                    return torch.segment_reduce(parts, "sum",
-                                                offsets=block_ptr, axis=0)
+        def lib(rows=rows, ptr=ptr):
+            return torch.segment_reduce(rows, "sum", offsets=ptr, axis=0)
 
-                entries = [
-                    ("splitk", "K4 split-K partials", kern_p, plain_p, None,
-                     in_bytes + nblocks * w * isz, ops),
-                    ("combine", "K4 segment combine", kern_c, plain_c, lib_c,
-                     nblocks * w * isz + block_ptr.numel() * 8
-                     + st.nseg * w * isz, nblocks * w)]
-        for stem, name, kern, plain, lib, nbytes, ops in entries:
-            tag = f"{name} {expr} ({spec_name}, {target})"
-            got, want = kern(), plain()
-            torch.cuda.synchronize()
-            err = check(tag, got, want)
-            del got, want
-            ms = time_ms(kern)
-            plain_ms = time_ms(plain)
-            lib_ms = time_ms(lib) if lib is not None else None
-            bound_ms, bound_by = bound(nbytes, ops)
-            rec = {"stem": stem, "name": name, "expr": expr,
-                   "spec": spec_name, "target": target,
-                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": bound_ms, "bound_by": bound_by,
-                   "library_ms": lib_ms, "bytes": nbytes, "ops": ops}
-            log("KERNEL_PHASE " + json.dumps(rec))
-            out.append(rec)
+        nbytes = (n + nseg) * w * rows.element_size() + ptr.numel() * 8
+        out.append(("combine", "K4 segment combine",
+                    f"{site} ({n}, {w}) -> ({nseg}, {w})",
+                    backend, kern, plain, lib, nbytes, n * w))
+    return out
+
+
+def measure(entries: list[tuple], spec_name: str) -> list[dict]:
+    """Each entry: kernel vs plain on the same inputs, then kernel /
+    plain / library times and the bound."""
+    import torch
+    out = []
+    for stem, name, stage, where, kern, plain, lib, nbytes, ops in entries:
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err = check(f"{name} {stage} ({spec_name}, {where})", got, want)
+        del got, want
+        ms = time_ms(kern)
+        plain_ms = time_ms(plain)
+        lib_ms = time_ms(lib) if lib is not None else None
+        bound_ms, bound_by = bound(nbytes, ops)
+        rec = {"stem": stem, "name": name, "stage": stage,
+               "spec": spec_name, "where": where,
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": lib_ms, "bytes": nbytes, "ops": ops}
+        log("KERNEL_PHASE " + json.dumps(rec))
+        out.append(rec)
     return out
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--nnz", type=int, default=NNZ,
-                    help="nonzeros of the main-path tensor (a smaller "
-                         "count is a quick rehearsal, not the smoke)")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -299,7 +352,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     log(f"device: {torch.cuda.get_device_name(0)} torch {torch.__version__} "
-        f"cuda {torch.version.cuda}")
+        f"cuda {torch.version.cuda} numpy {np.__version__}")
 
     # -- 1. build ------------------------------------------------------ #
     path, secs, report = native.build()
@@ -339,13 +392,13 @@ def main(argv=None) -> int:
     # -- 3. the main path at full size --------------------------------- #
     t0 = time.perf_counter()
     total = int(np.prod([float(s) for s in NELL2_SHAPE]))
-    coo = random_sparse(NELL2_SHAPE, args.nnz / total, seed=args.seed,
+    coo = random_sparse(NELL2_SHAPE, NNZ / total, seed=args.seed,
                         distribution="frostt")
     csf = build_csf(coo)
     log(f"tensor: shape {NELL2_SHAPE} nnz {coo.nnz} levels "
         f"{csf.nnz_levels()} built in {time.perf_counter() - t0:.1f} s")
-    if coo.nnz != args.nnz:
-        raise AssertionError(f"expected {args.nnz} nonzeros, got {coo.nnz}")
+    if coo.nnz != NNZ:
+        raise AssertionError(f"expected {NNZ} nonzeros, got {coo.nnz}")
     arrays = CSFArrays.from_csf(csf, dev)
     torch.cuda.synchronize()
 
@@ -358,39 +411,47 @@ def main(argv=None) -> int:
     for name, spec, backends in cases:
         p = plan(spec, nnz_levels=csf.nnz_levels())
         f = factors_to_torch(factors_for(spec), dev)
-        torch.cuda.reset_peak_memory_stats()
-        want = execute_plan(p, arrays, f, backend="torch")
-        torch.cuda.synchronize()
-        torch_ms = time_ms(lambda: execute_plan(p, arrays, f,
-                                                backend="torch"))
-        log(f"path {name} torch: {torch_ms!r} ms, peak "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        profile_path(f"{name} torch",
-                     lambda: execute_plan(p, arrays, f, backend="torch"),
-                     torch_ms)
-        for backend in backends:
-            captured: dict = {}
-            restore = recording_lowerings(captured)
+        seen: set = set()              # combine shapes measured already
+        for backend in ("torch",) + backends:
+            def run():
+                return execute_plan(p, arrays, f, backend=backend)
+
+            # the path as a user runs it: peak memory, time, trace
             torch.cuda.reset_peak_memory_stats()
+            run()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            ms = time_ms(run)
+            profile_path(f"{name} {backend}", run, ms)
+            # the counted run, recording every kernel's inputs
+            captured: dict = {}
+            combines: dict = {}
+            restore = recording_lowerings(captured)
+            restore_combines = recording_combines(combines)
             native.reset_launch_counts()
-            got = execute_plan(p, arrays, f, backend=backend)
+            got = run()
             torch.cuda.synchronize()
             counts = native.launch_counts()
             restore()
+            recorded = restore_combines()
+            if recorded != counts["combine"]:
+                raise AssertionError(
+                    f"{counts['combine']} combine launches, {recorded} "
+                    f"recorded: a caller of the combine is not recorded")
             for stem, n in counts.items():
                 launches[stem] += n
-            peak = torch.cuda.max_memory_allocated() / 2**30
-            check(f"path {name} {backend} vs torch", got, want)
+            if backend == "torch":
+                want = got
+            else:
+                check(f"path {name} {backend} vs torch", got, want)
             del got
-            ms = time_ms(lambda: execute_plan(p, arrays, f,
-                                              backend=backend))
-            log(f"path {name} {backend}: {ms!r} ms (torch engine "
-                f"{torch_ms!r} ms), launches {counts}, peak {peak:.2f} GiB")
-            profile_path(f"{name} {backend}",
-                         lambda: execute_plan(p, arrays, f, backend=backend),
-                         ms)
-            kernel_recs += measure_kernels(captured, name)
-            del captured
+            log(f"path {name} {backend}: {ms!r} ms, launches {counts}, "
+                f"peak {peak:.2f} GiB")
+            fresh = {k: v for k, v in combines.items() if k not in seen}
+            seen.update(fresh)
+            kernel_recs += measure(stage_entries(captured)
+                                   + combine_entries(fresh, backend), name)
+            del captured, combines, fresh
         del want, f
         torch.cuda.empty_cache()
 
@@ -400,16 +461,17 @@ def main(argv=None) -> int:
                              f"{missing}")
 
     # -- 4. summary ---------------------------------------------------- #
-    summary = []
+    summary = []                       # each kernel at its largest input
     for stem, info in native.KERNELS.items():
-        rec = next(r for r in kernel_recs if r["stem"] == stem)
+        rec = max((r for r in kernel_recs if r["stem"] == stem),
+                  key=lambda r: r["bytes"])
         summary.append({
             "name": info.name, "route": "cuda", "source": info.source,
             "replaces": info.replaces, "launches": launches[stem],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-            "shape": f"{rec['expr']} ({rec['spec']})"})
+            "shape": f"{rec['stage']} ({rec['spec']})"})
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

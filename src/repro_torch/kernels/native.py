@@ -1,10 +1,9 @@
 """Build, load and launch the package's hand-written CUDA kernels.
 
 The kernels live in ``repro_torch/csrc/*.cu`` as plain C entry points.
-At first use :func:`load_library` compiles every source with ``nvcc``
-for ``sm_90a`` (one ``nvcc`` per source, all started together, then one
-link) into a shared library under ``repro_torch/_build/`` and loads it
-with ``ctypes``.  The library's name carries a hash of the sources and
+At first use :func:`load_library` compiles the sources with one
+``nvcc -shared`` call for ``sm_90a`` into a shared library under
+``repro_torch/_build/`` and loads it with ``ctypes``.  The library's name carries a hash of the sources and
 flags, so an edited source is rebuilt and an unchanged one is reused.
 Nothing here runs at import time: this module imports on hosts without
 CUDA, and only a launch needs the toolkit.
@@ -94,23 +93,6 @@ def _nvcc() -> str:
     return nvcc
 
 
-def _run_all(cmds: list[list[str]]) -> str:
-    """Run the commands at once; raise with the output of any failure,
-    else return their joined output (the ptxas resource report)."""
-    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for c in cmds]
-    outs, failed = [], []
-    for cmd, proc in zip(cmds, procs):
-        out, _ = proc.communicate()
-        outs.append(out)
-        if proc.returncode:
-            failed.append(f"$ {' '.join(cmd)}\n{out}")
-    if failed:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-    return "".join(outs)
-
-
 def build() -> tuple[Path, float, str]:
     """Compile ``csrc/*.cu`` into one shared library (reused when the
     sources and flags are unchanged).  Returns its path, the seconds
@@ -124,18 +106,16 @@ def build() -> tuple[Path, float, str]:
         return lib, 0.0, ""
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    tag = f"{os.getpid()}"
-    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
-    log = _run_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
-                    for src, obj in zip(sources, objs)])
-    tmp = BUILD_DIR / f"{lib.name}.{tag}.tmp"
-    _run_all([[nvcc, *NVCC_FLAGS[:2], "-shared", *map(str, objs),
-               "-o", str(tmp)]])
+    tmp = BUILD_DIR / f"{lib.name}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-shared", *map(str, sources),
+           "-o", str(tmp)]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"kernel build failed:\n$ {' '.join(cmd)}\n"
+                           f"{proc.stdout}")
     os.replace(tmp, lib)           # atomic: concurrent builders agree
-    for obj in objs:
-        obj.unlink()
-    return lib, time.perf_counter() - t0, log
+    return lib, time.perf_counter() - t0, proc.stdout
 
 
 @functools.cache

@@ -71,7 +71,9 @@ def _plan_doc(doc):
 @pytest.mark.parametrize("shape,density,dist", [
     ((6, 7, 8), 0.3, "uniform"), ((60, 50, 40), 0.01, "frostt"),
     ((300, 200, 100), 0.005, "frostt"), ((4,) * 6, 0.02, "uniform"),
-    ((1, 1, 1), 0.5, "uniform"), ((9, 7), 0.4, "frostt")])
+    ((1, 1, 1), 0.5, "uniform"), ((9, 7), 0.4, "frostt"),
+    # the main path's kind: nell-2's shape and skew, at 200 K nonzeros
+    ((12092, 9184, 28818), 2e5 / (12092 * 9184 * 28818), "frostt")])
 def test_random_sparse_is_bit_identical(shape, density, dist):
     a = jcoo.random_sparse(shape, density, seed=7, distribution=dist)
     b = tcoo.random_sparse(shape, density, seed=7, distribution=dist)
