@@ -5,51 +5,79 @@ Run from the repository root, with no arguments::
 
     python3 chip_smoke.py [--seed N]
 
-Phases (each ends in ``torch.cuda.synchronize()``; any failure exits
-non-zero):
+Phases (each ends in ``torch.cuda.synchronize()``, prints its seconds;
+any failure exits non-zero):
 
-1. Build the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a).
+1. Build the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
+   source, all started together; sm_90a).
 2. A small tensor (60 x 50 x 40, density 0.01) through every engine and
-   strategy, against the port's numpy Algorithm-2 ``reference_execute``.
+   strategy (the fused chain included), against the port's numpy
+   Algorithm-2 ``reference_execute``.
 3. The main path at full size: a synthetic tensor of nell-2's shape
    (12092 x 9184 x 28818) with the generator's FROSTT-like skew and
    16,000,000 nonzeros.  MTTKRP (R=64), TTMc3 (R=S=16) and TTTP3 (R=64)
    run through ``execute_plan`` on ``"cuda"`` (MTTKRP also on
    ``"cuda-splitk"``), each held against the eager ``"torch"`` engine.
-   Each path is timed, its peak memory read and one call traced with
-   ``torch.profiler`` (device time by kernel and the device's idle share:
-   ``PROFILE`` lines) with nothing recorded; then one counted run, with
-   the launch counts zeroed just before it and read just after, records
-   the inputs of every kernel it launches.
-4. Per kernel, on the inputs the main path gave it — every stage the
-   lowerings ran and every segment-combine call (the split-K combine and
-   the sorted segment sums of the ``segsum`` strategy and the ``torch``
-   engine): the kernel against
-   its plain PyTorch version (tolerance ``1e-4 * max(1, max|plain|)``:
-   float32 with another summation order), kernel / plain / library-call
-   times (CUDA events, median of 10 after 2 warm-ups), and the least time
-   the card could take for the same work (bytes over 3.35 TB/s, or
-   operations over 67 TFLOP/s float32, whichever is larger).
+4. The autotuned path: ``plan(autotune=True)`` for MTTKRP and TTMc3 on
+   the same tensor over the ``torch``, ``cuda`` and ``cuda-splitk``
+   engines with block 8, each candidate printed with its largest buffer
+   and its time; the winner replayed against ``torch``; a second call
+   must be a cache hit with no execution.
+5. The fused chain forced on ``cuda`` (K3) and ``cuda-splitk``: MTTKRP
+   and TTMc3 on the same tensor, and TTMc4 (ranks 8) on a synthetic
+   tensor of FROSTT nips's shape (2482 x 2862 x 14036 x 17, 3,101,609
+   nonzeros), each against ``torch``.
+6. The paper kernels through ``kernels/ops.py`` on the 16 M tensor:
+   ``mttkrp`` (K5, block 256), ``ttmc_fiber`` (K6, block 128) and
+   ``tttp`` (K7, block 512), each against the ``torch`` engine's result.
+
+Every path is timed (CUDA events, median of 10 after 2 warm-ups), its
+peak memory read, and one call traced with ``torch.profiler`` after a
+warm-up step with every event kept (device time by kernel and the
+device's idle share: ``PROFILE`` lines); a trace that holds another
+number of launches of a kernel than the launch counts is taken again,
+and the run fails after three such traces.
+Then one counted run, with the launch counts zeroed just before it and
+read just after, records the inputs of every kernel it launches; it
+fails if a kernel the path runs was not launched.  Per kernel, on the
+inputs the path gave it: the kernel against its plain PyTorch version
+(tolerance ``1e-4 * max(1, max|plain|)``: float32 with another
+summation order), kernel / plain / library-call times, and the least
+time the card could take for the same work (bytes over 3.35 TB/s, or
+operations over 67 TFLOP/s float32, whichever is larger).
 
 Float32 products run in full float32: TF32 is switched off for matmul
-and cuDNN.  The last two lines are the card's name and power limit from
-``nvidia-smi`` and ``{"ok": true, "device": {...}}``.
+and cuDNN.  The last three lines are the ``kernels`` summary, the card's
+name and power limit from ``nvidia-smi`` and
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 NELL2_SHAPE = (12092, 9184, 28818)
 NNZ = 16_000_000
+NIPS_SHAPE = (2482, 2862, 14036, 17)     # FROSTT nips
+NIPS_NNZ = 3_101_609
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, published
 FP32_OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
+# the autotuned phase keeps the longest head of the model ranking whose
+# every candidate's largest buffer stays under this (the card has 80 GB;
+# the operand, its layouts and the other buffers of a call need the rest)
+FIT_BYTES = 24 * 2**30
+# kernel stem -> its name in a profiler trace
+TRACE_NAMES = {stem: f"spttn::{stem}_kernel<" for stem in (
+    "reduce", "product", "splitk", "combine", "chain", "mttkrp", "ttmc",
+    "tttp")}
 
 
 def log(*args) -> None:
@@ -99,34 +127,62 @@ def check(name: str, got, want) -> float:
     return err
 
 
-def profile_path(label: str, fn, event_ms: float) -> None:
+def profile_path(label: str, fn, event_ms: float, attempts: int = 3) -> None:
     """Device time by kernel for one call of ``fn`` (torch.profiler), and
-    the device's idle share of the call's unprofiled CUDA-event time."""
+    the device's idle share of the call's unprofiled CUDA-event time.
+
+    One warm-up step runs under the profiler before the traced step (the
+    first profiled call lost launches), and every event is kept
+    (``acc_events``).  The traced step's launches of each kernel of this
+    package must equal its launch count over the same call.  The trace
+    still drops a launch now and then, so an incomplete trace is taken
+    again, up to ``attempts`` times; the ``PROFILE`` line says how many
+    it took, and the run fails when none was complete."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    try:
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from repro_torch.kernels import native
+    for attempt in range(1, attempts + 1):
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     acc_events=True) as prof:
             fn()
             torch.cuda.synchronize()
-        rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                       for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA
-                       and e.self_device_time_total > 0), reverse=True)
-    except Exception as e:     # instrumentation only: report, do not fail
-        log(f"PROFILE {label}: not measured ({type(e).__name__}: {e})")
-        return
+            prof.step()
+            native.reset_launch_counts()
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+        counts = native.launch_counts()
+        # the step annotation spans the whole step: it is no device work
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0
+                  and not e.key.startswith("ProfilerStep")]
+        traced = {stem: sum(e.count for e in events if name in e.key)
+                  for stem, name in TRACE_NAMES.items()}
+        if traced == counts:
+            break
+        log(f"PROFILE {label}: attempt {attempt}: the trace holds "
+            f"launches {traced}, the launch counts say {counts}")
+    else:
+        raise AssertionError(f"PROFILE {label}: no complete trace in "
+                             f"{attempts} attempts")
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                   for e in events), reverse=True)
     busy = sum(r[0] for r in rows)
     log("PROFILE " + json.dumps({
         "path": label, "event_ms": event_ms, "device_busy_ms": busy,
         "idle_share": 1 - busy / event_ms if rows else None,
+        "launches": counts, "attempts": attempt,
         "top": [{"kernel": k[:100], "calls": c, "device_ms": t}
                 for t, c, k in rows[:12]]}))
 
 
 # --------------------------------------------------------------------- #
-# capture the main path's kernel inputs through the lowering registry
+# capture the kernels' inputs through the lowering registry and wrappers
 # --------------------------------------------------------------------- #
 def recording_lowerings(sink: dict):
     """Shadow the two registered Hopper lowerings with recorders that
@@ -151,10 +207,19 @@ def recording_lowerings(sink: dict):
                                  (ir, *args))
             return self.inner.product(ir, *args)
 
+        def chain(self, ir, *args):
+            self.sink.setdefault(("chain", self.target, chain_expr(ir)),
+                                 (ir, *args))
+            return self.inner.chain(ir, *args)
+
     inners = [get_lowering(t) for t in ("hopper", "hopper-splitk")]
     for inner in inners:
         register_lowering(Recorder(inner, sink))
     return lambda: [register_lowering(i) for i in inners]
+
+
+def chain_expr(ir) -> str:
+    return " -> ".join([ir.stage.expr] + [link.expr for link in ir.links])
 
 
 # every module that calls the segment-combine kernel, and what it sums
@@ -193,6 +258,26 @@ def recording_combines(sink: dict):
     return restore
 
 
+PAPER_WRAPPERS = ("mttkrp_kernel", "ttmc_kernel", "tttp_kernel")
+
+
+def recording_paper(sink: dict):
+    """Shadow the K5-K7 wrappers (which ``kernels/ops.py`` calls through
+    ``kernels.paper``) with recorders of their first inputs."""
+    from repro_torch.kernels import paper
+    inners = {n: getattr(paper, n) for n in PAPER_WRAPPERS}
+
+    def recorder(name):
+        def wrapper(*args, **kwargs):
+            sink.setdefault(name, (args, kwargs))
+            return inners[name](*args, **kwargs)
+        return wrapper
+
+    for name in PAPER_WRAPPERS:
+        setattr(paper, name, recorder(name))
+    return lambda: [setattr(paper, n, f) for n, f in inners.items()]
+
+
 def stage_nbytes(stage, nrows: int, itemsize: int) -> int:
     return sum((nrows if op.fiber else 1) * op.flat_dim * itemsize
                for op in stage.operands)
@@ -209,15 +294,54 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def chain_entry(ir, args, target: str) -> tuple:
+    """A captured K3 call as a :func:`stage_entries` entry."""
+    import torch
+    from repro_torch.kernels.codegen import stages
+    layout, tables, link_tables, padded, link_arrays, dtype = args
+    st = ir.stage
+    P = layout.padded_len
+    isz = torch.empty((), dtype=dtype).element_size()
+    nbytes = (stage_nbytes(st, P, isz) + P * 4 + table_nbytes(tables)
+              + layout.levels.numel() * 4 + layout.out_block_ptr.numel() * 8
+              + ir.nseg_out * ir.links[-1].out_flat_dim * isz)
+    ops = 2 * P * int(tables.a_idx.numel()) + P * st.out_flat_dim
+    for j, (link, arr, tab) in enumerate(zip(ir.links, link_arrays,
+                                             link_tables)):
+        nbytes += arr.numel() * isz + table_nbytes(tab)
+        ops += 2 * ir.nseg_lvls[j] * int(tab.a_idx.numel())
+
+    def kern():
+        return stages.run_fused_chain_stage(ir, *args)
+
+    def plain():
+        return stages.run_fused_chain_stage_plain(ir, layout, padded,
+                                                  link_arrays, dtype)
+
+    return ("chain", "K3 fused chain", chain_expr(ir), target, kern, plain,
+            None, nbytes, ops)
+
+
 def stage_entries(captured: dict) -> list[tuple]:
     """Each captured stage call as (stem, name, stage, target, kernel,
     plain, library or None, bytes, operations)."""
     import torch
     from repro_torch.kernels.codegen import lower_gpu, stages
+    from repro_torch.kernels.codegen.ir import get_lowering
     out = []
     for (kind, target, expr), (ir, *args) in captured.items():
         if kind == "product" and target == "hopper-splitk":
             continue                  # the same K2 as on "hopper"
+        if kind == "chain":
+            if target == "hopper":
+                out.append(chain_entry(ir, args, target))
+            else:                     # K4 + combine + einsum: no new kernel
+                layout, _, _, padded, link_arrays, dtype = args
+                check(f"split-K chain {expr}",
+                      get_lowering(target).chain(ir, *args),
+                      stages.run_fused_chain_stage_plain(
+                          ir, layout, padded, link_arrays, dtype))
+            continue
         st = ir.stage
         w = st.out_flat_dim
         if kind == "product":
@@ -300,6 +424,50 @@ def combine_entries(captured: dict, backend: str) -> list[tuple]:
     return out
 
 
+def paper_entries(captured: dict) -> list[tuple]:
+    """Each captured K5-K7 call, as :func:`stage_entries`."""
+    import torch
+    from repro_torch.kernels import native, paper
+    out = []
+    for name, (args, kwargs) in captured.items():
+        kern = getattr(paper, name)
+        plain = getattr(paper, name + "_plain")
+        if name == "mttkrp_kernel":
+            vals, bg, cg, mask, block_ptr, nseg, block = args
+            P, R = bg.shape
+            isz = bg.element_size()
+            nbytes = (P * isz + 2 * P * R * isz + P * 4
+                      + block_ptr.numel() * 8 + nseg * R * isz)
+            ops, lib = 3 * P * R + P, None
+            stem, label = "mttkrp", f"({P}, {R}) -> ({nseg}, {R})"
+        elif name == "ttmc_kernel":
+            ug, xf, block_ptr, nseg, block = args
+            P, R = ug.shape
+            S = xf.shape[1]
+            isz = ug.element_size()
+            nbytes = (P * (R + S) * isz + block_ptr.numel() * 8
+                      + nseg * R * S * isz)
+            ops, lib = 2 * P * R * S, None
+            stem, label = "ttmc", f"({P}, {R}) x ({P}, {S}) -> " \
+                f"({nseg}, {R}, {S})"
+        else:
+            vals, ug, vg, wg = args
+            n, R = ug.shape
+            isz = ug.element_size()
+            nbytes = n * isz + 3 * n * R * isz + n * isz
+            ops = 3 * n * R + n
+            stem, label = "tttp", f"3 x ({n}, {R}) -> ({n},)"
+
+            def lib(vals=vals, ug=ug, vg=vg, wg=wg):
+                return torch.einsum("n,nr,nr,nr->n", vals, ug, vg, wg)
+
+        out.append((stem, native.KERNELS[stem].name, label, "ops",
+                    lambda kern=kern, a=args, k=kwargs: kern(*a, **k),
+                    lambda plain=plain, a=args: plain(*a),
+                    lib, nbytes, ops))
+    return out
+
+
 def measure(entries: list[tuple], spec_name: str) -> list[dict]:
     """Each entry: kernel vs plain on the same inputs, then kernel /
     plain / library times and the bound."""
@@ -324,6 +492,119 @@ def measure(entries: list[tuple], spec_name: str) -> list[dict]:
     return out
 
 
+class Driver:
+    """Drives one path after another and keeps what the summary needs:
+    the launches of every counted run and the per-kernel records."""
+
+    def __init__(self):
+        from repro_torch.kernels import native
+        self.launches = {stem: 0 for stem in native.KERNELS}
+        self.records: list[dict] = []
+        self.seen: set = set()         # combine shapes measured already
+
+    def drive(self, label: str, run, expect=(), measure_as=None):
+        """Run ``run`` as a user would (peak memory, time, trace), then
+        once counted with every kernel's inputs recorded.  Fails unless
+        each stem in ``expect`` launched in the counted run.  Returns
+        the counted run's result (a tuple in ``expect`` needs any one of
+        its stems)."""
+        import torch
+
+        from repro_torch.kernels import native
+        torch.cuda.reset_peak_memory_stats()
+        run()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        ms = time_ms(run)
+        profile_path(label, run, ms)
+        captured: dict = {}
+        combines: dict = {}
+        papers: dict = {}
+        restore = recording_lowerings(captured)
+        restore_combines = recording_combines(combines)
+        restore_paper = recording_paper(papers)
+        native.reset_launch_counts()
+        got = run()
+        torch.cuda.synchronize()
+        counts = native.launch_counts()
+        restore()
+        restore_paper()
+        recorded = restore_combines()
+        if recorded != counts["combine"]:
+            raise AssertionError(
+                f"{counts['combine']} combine launches, {recorded} "
+                f"recorded: a caller of the combine is not recorded")
+        missing = [s for s in expect
+                   if not any(counts[x] for x in
+                              (s if isinstance(s, tuple) else (s,)))]
+        if missing:
+            raise AssertionError(f"{label}: kernels {missing} of this "
+                                 f"path were not launched")
+        for stem, n in counts.items():
+            self.launches[stem] += n
+        log(f"path {label}: {ms!r} ms, launches {counts}, "
+            f"peak {peak:.2f} GiB")
+        fresh = {k: v for k, v in combines.items() if k not in self.seen}
+        self.seen.update(fresh)
+        name = measure_as or label
+        self.records += measure(stage_entries(captured)
+                                + combine_entries(fresh, label)
+                                + paper_entries(papers), name)
+        del captured, combines, fresh, papers
+        return got
+
+
+def largest_buffer_bytes(spec, cand, levels, itemsize: int = 4) -> int:
+    """The largest array one call of candidate ``cand`` makes, from the
+    engines' rules: a term over a CSF prefix works on fiber rows (padded
+    per segment to block multiples by the code generator's row and chain
+    layouts: at most ``nfib + nseg * block`` rows); any other term runs
+    densely, on every operand materialized over its whole index space."""
+    import math
+
+    from repro_torch.analysis.invariants import fusible_chains
+    dims = spec.dims
+    spos = {s: i for i, s in enumerate(spec.sparse_indices)}
+
+    def slv(inds):
+        return max((spos[i] + 1 for i in inds if i in spos), default=0)
+
+    def prefix(inds):
+        sp = sorted(spos[i] for i in inds if i in spos)
+        return sp == list(range(len(sp)))
+
+    def dense(inds):
+        return math.prod(dims[i] for i in inds if i not in spos)
+
+    def nfib(lvl):
+        return levels[lvl] if lvl > 0 else 1
+
+    block = cand.block or 0
+    fiber = {t.name for t in spec.inputs if t.is_sparse}
+    chain_terms = {k for tids in (fusible_chains(spec, cand.path).values()
+                                  if cand.fused else ()) for k in tids}
+    biggest = 0
+    for tid, term in enumerate(cand.path):
+        lvl, out_lvl = slv(term.indices), slv(term.out.indices)
+        ops = (term.lhs, term.rhs)
+        on_fibers = (lvl and prefix(term.indices)
+                     and any(o.name in fiber for o in ops))
+        if on_fibers and (prefix(term.out.indices)
+                          or term.out.name == "OUT"):
+            rows = nfib(lvl)
+            if block and (tid in chain_terms or out_lvl < lvl):
+                rows += nfib(out_lvl) * block       # padded layout
+            sizes = [rows * dense(o.indices) for o in ops]
+            sizes.append(nfib(out_lvl) * dense(term.out.indices))
+            if out_lvl > 0 and term.out.name != "OUT":
+                fiber.add(term.out.name)
+        else:
+            sizes = [math.prod(dims[i] for i in o.indices) for o in ops]
+            sizes.append(math.prod(dims[i] for i in term.out.indices))
+        biggest = max(biggest, *sizes)
+    return biggest * itemsize
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -333,12 +614,14 @@ def main(argv=None) -> int:
     import torch
     sys.path.insert(0, os.path.join(REPO, "src"))
     try:
+        from repro_torch.autotune import TunerConfig, generate_candidates
         from repro_torch.core import spec as S
         from repro_torch.core.executor import (CSFArrays, execute_plan,
                                                factors_to_torch,
-                                               reference_execute)
+                                               reference_execute,
+                                               segment_sum)
         from repro_torch.core.planner import plan
-        from repro_torch.kernels import native
+        from repro_torch.kernels import native, ops
         from repro_torch.sparse import build_csf, random_sparse
     except ImportError as e:
         print(f"chip_smoke: the port is not here ({e})", file=sys.stderr)
@@ -353,6 +636,13 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     log(f"device: {torch.cuda.get_device_name(0)} torch {torch.__version__} "
         f"cuda {torch.version.cuda} numpy {np.__version__}")
+    t_phase = [time.perf_counter()]
+
+    def phase_done(name: str) -> None:
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        log(f"PHASE {name}: {now - t_phase[0]:.1f} s")
+        t_phase[0] = now
 
     # -- 1. build ------------------------------------------------------ #
     path, secs, report = native.build()
@@ -361,6 +651,7 @@ def main(argv=None) -> int:
     for line in report.splitlines():
         if "registers" in line or "spill" in line:
             log("  ptxas: " + line.strip())
+    phase_done("1 build")
 
     rng = np.random.default_rng(args.seed)
 
@@ -382,12 +673,13 @@ def main(argv=None) -> int:
         runs = [("torch", {})] + [
             (b, {"strategy": s, "block": 8})
             for b in ("cuda", "cuda-splitk")
-            for s in ("row", "segsum", "auto")]
+            for s in ("row", "segsum", "auto", "fused")]
         for backend, kw in runs:
             out = execute_plan(p, small_arrays, f, backend=backend, **kw)
             torch.cuda.synchronize()
             check(f"small {spec.output.indices} {backend} "
                   f"{kw.get('strategy', '')}", out, ref)
+    phase_done("2 small tensor")
 
     # -- 3. the main path at full size --------------------------------- #
     t0 = time.perf_counter()
@@ -395,79 +687,225 @@ def main(argv=None) -> int:
     coo = random_sparse(NELL2_SHAPE, NNZ / total, seed=args.seed,
                         distribution="frostt")
     csf = build_csf(coo)
-    log(f"tensor: shape {NELL2_SHAPE} nnz {coo.nnz} levels "
-        f"{csf.nnz_levels()} built in {time.perf_counter() - t0:.1f} s")
+    levels = csf.nnz_levels()
+    log(f"tensor: shape {NELL2_SHAPE} nnz {coo.nnz} levels {levels} "
+        f"built in {time.perf_counter() - t0:.1f} s")
     if coo.nnz != NNZ:
         raise AssertionError(f"expected {NNZ} nonzeros, got {coo.nnz}")
     arrays = CSFArrays.from_csf(csf, dev)
-    torch.cuda.synchronize()
+    phase_done("3a tensor")
 
-    launches = {stem: 0 for stem in native.KERNELS}
-    kernel_recs: list[dict] = []
+    drv = Driver()
     I, J, K = NELL2_SHAPE
-    cases = [("MTTKRP", S.mttkrp(I, J, K, 64), ("cuda", "cuda-splitk")),
-             ("TTMc3", S.ttmc3(I, J, K, 16, 16), ("cuda",)),
-             ("TTTP3", S.tttp3(I, J, K, 64), ("cuda",))]
-    for name, spec, backends in cases:
-        p = plan(spec, nnz_levels=csf.nnz_levels())
-        f = factors_to_torch(factors_for(spec), dev)
-        seen: set = set()              # combine shapes measured already
+    specs = {"MTTKRP": S.mttkrp(I, J, K, 64),
+             "TTMc3": S.ttmc3(I, J, K, 16, 16),
+             "TTTP3": S.tttp3(I, J, K, 64)}
+    factors = {name: factors_to_torch(factors_for(spec), dev)
+               for name, spec in specs.items()}
+    cases = [("MTTKRP", ("cuda", "cuda-splitk")), ("TTMc3", ("cuda",)),
+             ("TTTP3", ("cuda",))]
+    expect = {("MTTKRP", "torch"): ("combine",),
+              ("MTTKRP", "cuda"): ("product", "combine", "reduce"),
+              ("MTTKRP", "cuda-splitk"): ("product", "combine", "splitk"),
+              ("TTMc3", "torch"): ("combine",),
+              ("TTMc3", "cuda"): ("product", "combine", "reduce"),
+              ("TTTP3", "torch"): (), ("TTTP3", "cuda"): ("product",)}
+    torch_out = {}
+    for name, backends in cases:
+        spec, f = specs[name], factors[name]
+        p = plan(spec, nnz_levels=levels)
         for backend in ("torch",) + backends:
-            def run():
+            def run(p=p, f=f, backend=backend):
                 return execute_plan(p, arrays, f, backend=backend)
 
-            # the path as a user runs it: peak memory, time, trace
-            torch.cuda.reset_peak_memory_stats()
-            run()
-            torch.cuda.synchronize()
-            peak = torch.cuda.max_memory_allocated() / 2**30
-            ms = time_ms(run)
-            profile_path(f"{name} {backend}", run, ms)
-            # the counted run, recording every kernel's inputs
-            captured: dict = {}
-            combines: dict = {}
-            restore = recording_lowerings(captured)
-            restore_combines = recording_combines(combines)
-            native.reset_launch_counts()
-            got = run()
-            torch.cuda.synchronize()
-            counts = native.launch_counts()
-            restore()
-            recorded = restore_combines()
-            if recorded != counts["combine"]:
-                raise AssertionError(
-                    f"{counts['combine']} combine launches, {recorded} "
-                    f"recorded: a caller of the combine is not recorded")
-            for stem, n in counts.items():
-                launches[stem] += n
+            got = drv.drive(f"{name} {backend}", run,
+                            expect=expect[name, backend], measure_as=name)
             if backend == "torch":
-                want = got
+                torch_out[name] = got
             else:
-                check(f"path {name} {backend} vs torch", got, want)
+                check(f"path {name} {backend} vs torch", got,
+                      torch_out[name])
             del got
-            log(f"path {name} {backend}: {ms!r} ms, launches {counts}, "
-                f"peak {peak:.2f} GiB")
-            fresh = {k: v for k, v in combines.items() if k not in seen}
-            seen.update(fresh)
-            kernel_recs += measure(stage_entries(captured)
-                                   + combine_entries(fresh, backend), name)
-            del captured, combines, fresh
-        del want, f
         torch.cuda.empty_cache()
+    phase_done("3b main path")
 
-    missing = [s for s, n in launches.items() if n == 0]
+    # -- 4. the autotuned path ----------------------------------------- #
+    os.makedirs(native.BUILD_DIR, exist_ok=True)
+    cache_dir = tempfile.mkdtemp(prefix="plans-", dir=native.BUILD_DIR)
+    blocks = (8,)
+    for name in ("MTTKRP", "TTMc3"):
+        spec, f = specs[name], factors[name]
+        full = generate_candidates(spec, nnz_levels=levels, blocks=blocks,
+                                   backends=("torch", "cuda",
+                                             "cuda-splitk"))
+        sizes = {c.key: largest_buffer_bytes(spec, c, levels)
+                 for c in full}
+        schedules: list = []
+        for c in full:
+            if (c.path, c.order) not in schedules:
+                schedules.append((c.path, c.order))
+        keep = 0
+        for m in range(1, len(schedules) + 1):
+            if all(sizes[c.key] <= FIT_BYTES for c in full
+                   if (c.path, c.order) in schedules[:m]):
+                keep = m
+            else:
+                break
+        if keep == 0:
+            raise AssertionError(f"{name}: the model's first schedule "
+                                 f"does not fit")
+        for c in full:
+            log("CANDIDATE " + json.dumps({
+                "spec": name, "path": [str(t) for t in c.path],
+                "order": [list(a) for a in c.order],
+                "backend": c.backend, "fused": c.fused, "block": c.block,
+                "largest_GiB": sizes[c.key] / 2**30,
+                "kept": (c.path, c.order) in schedules[:keep]}))
+        cfg = TunerConfig(backends=("torch", "cuda", "cuda-splitk"),
+                          blocks=blocks, max_candidates=keep)
+        log(f"tune {name}: max_candidates={keep} of {len(schedules)} "
+            f"schedules (every kept candidate under "
+            f"{FIT_BYTES / 2**30:.0f} GiB)")
+        native.reset_launch_counts()
+        t0 = time.perf_counter()
+        tuned = plan(spec, nnz_levels=levels, autotune=True, csf=arrays,
+                     factors=f, cache_dir=cache_dir, tuner=cfg)
+        torch.cuda.synchronize()
+        st = tuned.stats
+        log(f"tune {name}: {time.perf_counter() - t0:.1f} s, "
+            f"{st.candidates_timed} timed, {st.executions} executions, "
+            f"{st.pruned} pruned, launches {native.launch_counts()}")
+        for m in st.measurements:
+            c = m.candidate
+            log("TUNED " + json.dumps({
+                "spec": name, "path": [str(t) for t in c.path],
+                "order": [list(a) for a in c.order], "backend": c.backend,
+                "fused": c.fused, "block": c.block,
+                "largest_GiB": sizes[c.key] / 2**30,
+                "ms": m.seconds * 1e3, "pruned": m.pruned}))
+        log(f"tune {name}: winner backend={tuned.backend} "
+            f"fused={tuned.fused} block={tuned.block} "
+            f"path={[str(t) for t in tuned.path]}")
+        replay = {"torch": ("combine",),
+                  "cuda": (("chain",) if tuned.fused
+                           else (("reduce", "product"),)),
+                  "cuda-splitk": ("splitk", "combine")}[tuned.backend]
+
+        def run(tuned=tuned, f=f):
+            return execute_plan(tuned, arrays, f)
+
+        got = drv.drive(f"{name} tuned ({tuned.backend}"
+                        f"{' fused' if tuned.fused else ''})", run,
+                        expect=replay, measure_as=name)
+        check(f"path {name} tuned winner vs torch", got, torch_out[name])
+        del got
+        again = plan(spec, nnz_levels=levels, autotune=True, csf=arrays,
+                     factors=f, cache_dir=cache_dir, tuner=cfg)
+        if not again.stats.cache_hit or again.stats.executions != 0 \
+                or again != tuned:
+            raise AssertionError(
+                f"{name}: the second plan(autotune=True) was no cache hit "
+                f"with 0 executions: {again.stats}")
+        log(f"tune {name}: second call cache_hit="
+            f"{again.stats.cache_hit} executions={again.stats.executions}")
+        torch.cuda.empty_cache()
+    phase_done("4 autotuned path")
+
+    # -- 5. the fused chain forced, on both code-generator engines ----- #
+    def fused_paths(name, spec, arrays_, f, want, block):
+        p = plan(spec, nnz_levels=arrays_.host.nnz_levels())
+        for backend in ("cuda", "cuda-splitk"):
+            fused = dataclasses.replace(p, backend=backend, fused=True,
+                                        block=block)
+
+            def run(fused=fused, f=f):
+                return execute_plan(fused, arrays_, f)
+
+            got = drv.drive(f"{name} {backend} fused", run,
+                            expect=("chain",) if backend == "cuda"
+                            else ("splitk", "combine"), measure_as=name)
+            check(f"path {name} {backend} fused vs torch", got, want)
+            del got
+        for key, entry in arrays_.cache.items():
+            if key[0] == "chain" and key[-1] == block:
+                _, lvl0, chain_levels, _ = key
+                lay = entry[0]
+                log(f"chain {name}: levels {lvl0} -> {list(chain_levels)}"
+                    f", block {block}: P = {lay.padded_len} padded rows "
+                    f"({lay.nblocks} blocks) for {arrays_.nfib[lvl0]} "
+                    f"fibers")
+
+    for name in ("MTTKRP", "TTMc3"):
+        fused_paths(name, specs[name], arrays, factors[name],
+                    torch_out[name], 8)
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    total = int(np.prod([float(s) for s in NIPS_SHAPE]))
+    nips_coo = random_sparse(NIPS_SHAPE, NIPS_NNZ / total, seed=args.seed,
+                             distribution="frostt")
+    nips = build_csf(nips_coo)
+    log(f"tensor nips: shape {NIPS_SHAPE} nnz {nips_coo.nnz} levels "
+        f"{nips.nnz_levels()} built in {time.perf_counter() - t0:.1f} s")
+    if nips_coo.nnz != NIPS_NNZ:
+        raise AssertionError(f"expected {NIPS_NNZ} nonzeros, got "
+                             f"{nips_coo.nnz}")
+    nips_arrays = CSFArrays.from_csf(nips, dev)
+    spec4 = S.ttmc4(*NIPS_SHAPE, 8, 8, 8)
+    f4 = factors_to_torch(factors_for(spec4), dev)
+    p4 = plan(spec4, nnz_levels=nips.nnz_levels())
+    want4 = drv.drive("TTMc4 torch",
+                      lambda: execute_plan(p4, nips_arrays, f4,
+                                           backend="torch"),
+                      expect=("combine",), measure_as="TTMc4")
+    fused_paths("TTMc4", spec4, nips_arrays, f4, want4, 8)
+    del want4, nips_arrays, f4
+    torch.cuda.empty_cache()
+    phase_done("5 fused chain")
+
+    # -- 6. the paper kernels through kernels/ops.py ------------------- #
+    b, c = factors["MTTKRP"]["B"], factors["MTTKRP"]["C"]
+    lay5 = ops.mttkrp_layout(csf, 256)
+    rows1 = arrays.fiber_coord[1][0]
+    got = drv.drive("ops.mttkrp", lambda: ops.mttkrp(csf, b, c,
+                                                     layout=lay5),
+                    expect=("mttkrp",), measure_as="ops")
+    check("ops.mttkrp vs MTTKRP torch", got, torch_out["MTTKRP"][rows1])
+    f3 = factors["TTMc3"]
+    u_name, v_name = (t.name for t in specs["TTMc3"].inputs
+                      if not t.is_sparse)
+    U, V = f3[u_name], f3[v_name]
+    kidx = arrays.fiber_coord[3][2]
+    xf = segment_sum(arrays, arrays.values[:, None] * V[kidx], 3, 2)
+    ug = U[arrays.fiber_coord[2][1]]
+    lay6 = ops.ttmc_fiber_layout(csf, 128)
+    got = drv.drive("ops.ttmc_fiber",
+                    lambda: ops.ttmc_fiber(ug, xf, lay6),
+                    expect=("ttmc",), measure_as="ops")
+    check("ops.ttmc_fiber vs TTMc3 torch", got, torch_out["TTMc3"][rows1])
+    del xf, ug
+    f7 = factors["TTTP3"]
+    u7, v7, w7 = (f7[t.name] for t in specs["TTTP3"].inputs
+                  if not t.is_sparse)
+    got = drv.drive("ops.tttp", lambda: ops.tttp(csf, u7, v7, w7,
+                                                 block=512),
+                    expect=("tttp",), measure_as="ops")
+    check("ops.tttp vs TTTP3 torch", got, torch_out["TTTP3"])
+    del got
+    phase_done("6 paper kernels")
+
+    missing = [s for s, n in drv.launches.items() if n == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
 
-    # -- 4. summary ---------------------------------------------------- #
+    # -- summary ------------------------------------------------------- #
     summary = []                       # each kernel at its largest input
     for stem, info in native.KERNELS.items():
-        rec = max((r for r in kernel_recs if r["stem"] == stem),
+        rec = max((r for r in drv.records if r["stem"] == stem),
                   key=lambda r: r["bytes"])
         summary.append({
             "name": info.name, "route": "cuda", "source": info.source,
-            "replaces": info.replaces, "launches": launches[stem],
+            "replaces": info.replaces, "launches": drv.launches[stem],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],

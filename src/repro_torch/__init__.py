@@ -44,6 +44,10 @@ _EXPORTS = {
     "reference_execute": "repro_torch.core.executor",
     "plan_to_json": "repro_torch.core.executor",
     "plan_from_json": "repro_torch.core.executor",
+    "tune": "repro_torch.autotune.tuner",
+    "TunerConfig": "repro_torch.autotune.tuner",
+    "SearchStats": "repro_torch.autotune.tuner",
+    "PlanCache": "repro_torch.autotune.cache",
     "BACKENDS": "repro_torch.analysis.diagnostics",
     "verify_plan": "repro_torch.analysis",
     "Diagnostic": "repro_torch.analysis",

@@ -544,11 +544,29 @@ class VectorizedExecutor:
             return val.array
         return self._to_dense(csf, val, spec.output.indices)
 
+    def _chain_len(self, tid: int) -> int:
+        """Number of consecutive terms starting at ``tid`` this engine
+        executes as one unit.  The eager engine runs one term at a time;
+        the code generator overrides this with its fused chains."""
+        return 1
+
+    def _exec_chain(self, csf: CSFArrays, factors: Mapping, env: dict,
+                    tid: int, length: int):
+        raise NotImplementedError   # pragma: no cover - chain engines only
+
     def __call__(self, csf: CSFArrays, factors: Mapping) -> torch.Tensor:
         factors = factors_to_torch(factors, csf.device)
         env: dict[str, FiberVal | DenseVal] = {}
-        for term in self.path:
-            val = self._exec_term(csf, factors, env, term)
+        tid, n = 0, len(self.path)
+        while tid < n:
+            length = self._chain_len(tid)
+            if length > 1:
+                val = self._exec_chain(csf, factors, env, tid, length)
+                term = self.path[tid + length - 1]
+            else:
+                term = self.path[tid]
+                val = self._exec_term(csf, factors, env, term)
+            tid += length
             if term.out.name == "OUT":
                 return self._materialize_output(csf, val)
             env[term.out.name] = val
@@ -777,7 +795,7 @@ def execute_plan(plan, csf, factors: Mapping, backend: str | None = None,
         return total
     if resolved in CODEGEN_BACKENDS and getattr(plan, "fused", False):
         # a fused-winner plan replays through the chain lowering it was
-        # tuned with, which raises until that kernel is ported
+        # tuned with
         kwargs.setdefault("strategy", "fused")
     if resolved in CODEGEN_BACKENDS and getattr(plan, "block", None):
         kwargs.setdefault("block", plan.block)

@@ -96,9 +96,20 @@ def plan(spec: SpTTNSpec,
     Default cost is the paper's experiment metric (§7): maximize BLAS-able
     innermost dense loops with intermediate buffer dimension bounded by 2.
 
-    ``autotune=True`` (measured planning) and ``memory_budget`` (sliced
-    replay) need modules this package has not ported yet; both raise
-    ``NotImplementedError`` rather than being ignored.
+    ``autotune=True`` augments the model with measurement (paper §4.1):
+    candidates are model-pruned, run and timed on the operand's device,
+    and the winner is persisted under ``cache_dir`` keyed by (spec
+    signature, CSF nnz-level profile, device kind) — a later call in any
+    process with the same key returns the cached plan without executing
+    a single candidate (see ``plan.stats``).  ``csf``/``factors`` supply
+    the measurement inputs (pass the tensor: one synthesized at the
+    spec's dimensions holds 5 % of them all); ``tuner`` is an optional
+    :class:`repro_torch.autotune.TunerConfig` (``config=`` is a
+    deprecated alias).
+
+    ``memory_budget`` (sliced replay) needs ``core/slicing.py``, which is
+    not ported yet, and raises ``NotImplementedError`` rather than being
+    ignored.
 
     >>> from repro_torch.core import spec as S
     >>> p = plan(S.mttkrp(8, 6, 5, 4))
@@ -112,14 +123,22 @@ def plan(spec: SpTTNSpec,
     2
     """
     tuner = _resolve_tuner_alias(tuner, config, "plan")
-    if autotune:
-        raise NotImplementedError(
-            "plan(autotune=True) needs the autotune/ package, which is not "
-            "ported yet (ROADMAP queue 1, item 6)")
     if memory_budget is not None:
         raise NotImplementedError(
             "plan(memory_budget=...) needs core/slicing.py, which is not "
             "ported yet (ROADMAP queue 1, item 5)")
+    if autotune:
+        from repro_torch.autotune import TunerConfig, tune
+        if tuner is None:
+            # honor this function's search-width arguments; an explicit
+            # TunerConfig overrides them wholesale
+            tuner = TunerConfig(max_paths=max_paths,
+                                depth_slack=depth_slack)
+        best, stats = tune(spec, cost=cost, nnz_levels=nnz_levels, csf=csf,
+                           factors=factors, cache_dir=cache_dir,
+                           tuner=tuner)
+        best.stats = stats
+        return best
     cost = cost or ConstrainedBlas(bound=2)
     if nnz_levels is None:
         # density-agnostic default: nnz^(I1..Ip) grows with the prefix space

@@ -17,6 +17,7 @@
 //
 //   reduce    K1  src/repro/kernels/codegen/stages.py  run_reduce_stage
 //   product   K2  src/repro/kernels/codegen/stages.py  run_product_stage
+//   chain     K3  src/repro/kernels/codegen/stages.py  run_fused_chain_stage
 //   splitk    K4  src/repro/kernels/codegen/lower_gpu.py  splitk_partials
 //   combine   K4  src/repro/kernels/codegen/lower_gpu.py  segment_combine
 //
@@ -36,7 +37,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+namespace spttn {
 
 // One output column of one fiber: sum over the column's terms.  The
 // accumulator has the operand type: float32 stages accumulate in float32
@@ -162,7 +163,83 @@ __global__ void combine_kernel(const T* __restrict__ rows,
   out[i] = acc;
 }
 
-}  // namespace
+// K3: a fused chain of reducing stages, one thread block per outermost
+// segment s, walking the segment's contiguous block range in ascending
+// order (the TPU's sequential grid, restricted to one output row).  Per
+// block, as the TPU kernel does it:
+//   1. every inner level j whose segment opens here zeroes buffer j;
+//   2. the innermost stage's block partial is added to buffer 0;
+//   3. every inner level j whose segment closes here (inner levels
+//      first) flushes buffer j through link j's einsum — buffer j times
+//      the link operand's row at the block's level-j segment — into
+//      buffer j+1, or into the output row for the last link.
+// The buffers live in shared memory after the 256-element reduction
+// scratch; the output row is this block's own, so it is accumulated in
+// place.  A segment with no blocks leaves its row zero.
+//
+// levels is (3 * nlinks, nblocks) int32: per inner level j the block's
+// segment id (row 3j), opens flag (3j+1) and closes flag (3j+2).  desc
+// holds kLinkFields int64 per link: the link operand's row pointer and
+// row stride (0 = broadcast), its index table (out_ptr, a_idx, b_idx),
+// then the buffer it reads (width, offset) and the one it writes
+// (width, offset; offset -1 = the output row).
+constexpr int kLinkFields = 9;
+
+template <typename T>
+__global__ void chain_kernel(const T* __restrict__ a, long long a_rs,
+                             const T* __restrict__ b, long long b_rs,
+                             const float* __restrict__ mask, int block,
+                             const int* __restrict__ out_ptr,
+                             const int* __restrict__ a_idx,
+                             const int* __restrict__ b_idx, int stage_w,
+                             int nlinks, const int* __restrict__ levels,
+                             long long nblocks,
+                             const long long* __restrict__ desc,
+                             const long long* __restrict__ out_block_ptr,
+                             int out_w, T* __restrict__ out) {
+  extern __shared__ unsigned char smem[];
+  T* red = reinterpret_cast<T*>(smem);
+  T* bufs = red + blockDim.x * blockDim.y;
+  const long long s = blockIdx.x;
+  const int nthreads = blockDim.x * blockDim.y;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  T* orow = out + s * out_w;
+  for (int o = tid; o < out_w; o += nthreads) orow[o] = T(0);
+  for (long long blk = out_block_ptr[s]; blk < out_block_ptr[s + 1];
+       ++blk) {
+    for (int j = 0; j < nlinks; ++j) {
+      if (levels[(3LL * j + 1) * nblocks + blk]) {
+        const long long* d = desc + j * kLinkFields;
+        T* buf = bufs + d[6];
+        for (int o = tid; o < (int)d[5]; o += nthreads) buf[o] = T(0);
+      }
+    }
+    __syncthreads();
+    for (int c0 = 0; c0 < stage_w; c0 += blockDim.x) {
+      const int o = c0 + threadIdx.x;
+      const T p = block_partial(a, a_rs, b, b_rs, mask, blk, block, out_ptr,
+                                a_idx, b_idx, o, stage_w, red);
+      if (threadIdx.y == 0 && o < stage_w) bufs[o] += p;
+    }
+    __syncthreads();
+    for (int j = 0; j < nlinks; ++j) {
+      if (!levels[(3LL * j + 2) * nblocks + blk]) continue;
+      const long long* d = desc + j * kLinkFields;
+      const T* row = reinterpret_cast<const T*>(d[0]) +
+                     (long long)levels[3LL * j * nblocks + blk] * d[1];
+      const int* lp = reinterpret_cast<const int*>(d[2]);
+      const int* la = reinterpret_cast<const int*>(d[3]);
+      const int* lb = reinterpret_cast<const int*>(d[4]);
+      const T* src = bufs + d[6];
+      T* dst = d[8] >= 0 ? bufs + d[8] : orow;
+      for (int o = tid; o < (int)d[7]; o += nthreads)
+        dst[o] += fiber_column(src, row, la, lb, lp[o], lp[o + 1]);
+      __syncthreads();
+    }
+  }
+}
+
+}  // namespace spttn
 
 // --------------------------------------------------------------------------
 // C entry points (bound with ctypes).  Launch geometry comes from the
@@ -177,7 +254,7 @@ __global__ void combine_kernel(const T* __restrict__ rows,
       int tx, void* out, void* stream) {                                       \
     const dim3 threads(tx, 256 / tx);                                          \
     const dim3 grid((unsigned)nseg, (out_w + tx - 1) / tx);                    \
-    reduce_kernel<T><<<grid, threads, 256 * sizeof(T),                         \
+    spttn::reduce_kernel<T><<<grid, threads, 256 * sizeof(T),                  \
                        (cudaStream_t)stream>>>(                                \
         (const T*)a, a_rs, (const T*)b, b_rs, (const float*)mask,              \
         (const long long*)block_ptr, block, (const int*)out_ptr,               \
@@ -191,7 +268,7 @@ __global__ void combine_kernel(const T* __restrict__ rows,
       void* partials, void* stream) {                                          \
     const dim3 threads(tx, 256 / tx);                                          \
     const dim3 grid((unsigned)nblocks, (out_w + tx - 1) / tx);                 \
-    splitk_kernel<T><<<grid, threads, 256 * sizeof(T),                         \
+    spttn::splitk_kernel<T><<<grid, threads, 256 * sizeof(T),                  \
                        (cudaStream_t)stream>>>(                                \
         (const T*)a, a_rs, (const T*)b, b_rs, (const float*)mask, block,       \
         (const int*)out_ptr, (const int*)a_idx, (const int*)b_idx, out_w,      \
@@ -205,16 +282,37 @@ __global__ void combine_kernel(const T* __restrict__ rows,
     const dim3 threads(tx, 256 / tx);                                          \
     const dim3 grid((unsigned)((nrows + threads.y - 1) / threads.y),           \
                     (out_w + tx - 1) / tx);                                    \
-    product_kernel<T><<<grid, threads, 0, (cudaStream_t)stream>>>(             \
+    spttn::product_kernel<T><<<grid, threads, 0, (cudaStream_t)stream>>>(      \
         (const T*)a, a_rs, (const T*)b, b_rs, nrows, (const int*)out_ptr,      \
         (const int*)a_idx, (const int*)b_idx, out_w, (T*)out);                 \
+    return (int)cudaGetLastError();                                            \
+  }                                                                            \
+  extern "C" int spttn_chain_##SUFFIX(                                         \
+      const void* a, long long a_rs, const void* b, long long b_rs,            \
+      const void* mask, int block, const void* out_ptr, const void* a_idx,     \
+      const void* b_idx, int stage_w, int tx, int nlinks, const void* levels,  \
+      long long nblocks, const void* desc, const void* out_block_ptr,          \
+      long long nseg_out, int out_w, int smem, void* out, void* stream) {      \
+    if (smem > 48 * 1024) {                                                    \
+      const cudaError_t e = cudaFuncSetAttribute(                              \
+          spttn::chain_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, \
+          smem);                                                               \
+      if (e != cudaSuccess) return (int)e;                                     \
+    }                                                                          \
+    const dim3 threads(tx, 256 / tx);                                          \
+    spttn::chain_kernel<T><<<(unsigned)nseg_out, threads, smem,                \
+                      (cudaStream_t)stream>>>(                                 \
+        (const T*)a, a_rs, (const T*)b, b_rs, (const float*)mask, block,       \
+        (const int*)out_ptr, (const int*)a_idx, (const int*)b_idx, stage_w,    \
+        nlinks, (const int*)levels, nblocks, (const long long*)desc,           \
+        (const long long*)out_block_ptr, out_w, (T*)out);                      \
     return (int)cudaGetLastError();                                            \
   }                                                                            \
   extern "C" int spttn_combine_##SUFFIX(const void* rows, const void* ptr,     \
                                         long long nseg, int w, void* out,      \
                                         void* stream) {                        \
     const long long n = nseg * w;                                              \
-    combine_kernel<T><<<(unsigned)((n + 255) / 256), 256, 0,                   \
+    spttn::combine_kernel<T><<<(unsigned)((n + 255) / 256), 256, 0,            \
                         (cudaStream_t)stream>>>(                               \
         (const T*)rows, (const long long*)ptr, nseg, w, (T*)out);              \
     return (int)cudaGetLastError();                                            \

@@ -1,10 +1,14 @@
 """Hand-written Hopper kernels and their host-side layouts.
 
-  csrc/stage_kernels.cu     — the CUDA sources (built at first use)
+  csrc/stage_kernels.cu     — the stage kernels' CUDA sources (K1-K4 and
+                              the segment combine; built at first use)
+  csrc/paper_kernels.cu     — the paper kernels' CUDA sources (K5-K7)
   native                    — nvcc build, ctypes binding, launch counts
   segment                   — sorted segment sum (the combine kernel)
   codegen/                  — stage IR, the Hopper lowerings and the plan
                               executor (backends "cuda", "cuda-splitk")
+  paper, ref, ops           — K5-K7's wrappers, their oracles (the plain
+                              versions) and their drivers
   util                      — block-aligned segment layouts (numpy)
 
 Submodules are imported where they are used: ``core.executor`` needs

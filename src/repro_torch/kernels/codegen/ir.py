@@ -11,9 +11,11 @@ into kernels for one target:
 
 * ``"hopper"`` (kernels/codegen/stages.py) — the segment-loop lowering:
   one thread block per output segment walks the segment's blocks in
-  ascending order (K1), per-fiber products are K2.
+  ascending order (K1), per-fiber products are K2, and a fused chain is
+  one thread block per outermost segment (K3).
 * ``"hopper-splitk"`` (kernels/codegen/lower_gpu.py) — split-K partials
-  per fiber block (K4) plus a segment-combine pass.
+  per fiber block (K4) plus a segment-combine pass; a chain adds one
+  batched einsum and one combine per link.
 
 :func:`index_tables` turns a stage's einsum into the index table the
 Hopper kernels read (``csrc/stage_kernels.cu``).  ``Stage.tile`` and
@@ -137,6 +139,44 @@ class StageIR:
     nseg_lvls: tuple[int, ...] = ()
 
 
+@dataclasses.dataclass(frozen=True)
+class ChainLayout:
+    """The block layout of a fused chain with ``C - 1`` links, on one
+    device (pattern-static, cached with the operand).
+
+    * ``mask`` — ``(P,)`` float32, 1 for real slots of the padded
+      innermost layout, 0 for pads;
+    * ``levels`` — ``(3 * (C - 1), P // block)`` int32: for each inner
+      chain level ``j`` the per-block segment id (row ``3j``), the
+      segment-opens flag (``3j + 1``, the TPU kernel's reset) and the
+      segment-closes flag (``3j + 2``, its flush);
+    * ``out_block_ptr`` — int64 ``(nseg_out + 1,)``: the contiguous block
+      range of each outermost segment (an empty range is a row with no
+      blocks, which stays zero);
+    * ``block_ptr`` — int64 ``(nseg_lvls[0] + 1,)``: the block range of
+      each level-0 row (the split-K combine);
+    * ``parent_ptrs`` — per link ``j``, int64 row offsets of the level-``j``
+      rows of each level-``j + 1`` row (the last one's parents are the
+      output rows)."""
+
+    mask: torch.Tensor
+    levels: torch.Tensor
+    out_block_ptr: torch.Tensor
+    block_ptr: torch.Tensor
+    parent_ptrs: tuple[torch.Tensor, ...]
+
+    @property
+    def padded_len(self) -> int:
+        return self.mask.shape[0]
+
+
+def link_stage(link: ChainLink) -> Stage:
+    """A link's flush as a stage: ``einsum(link.expr)`` of one buffer row
+    and one operand row — what :func:`index_table_arrays` enumerates."""
+    return Stage(operands=link.operands, out_subs=link.out_subs,
+                 out_shape=link.out_shape, reduce=True, block=1, nseg=1)
+
+
 # --------------------------------------------------------------------- #
 # Index tables: a stage's einsum as the Hopper kernels read it
 # --------------------------------------------------------------------- #
@@ -242,7 +282,11 @@ class Lowering:
       contiguous block range, ``mask`` the (P,) pad-slot mask
     * ``product`` → ``(rows, stage.out_flat_dim)`` in ``dtype``, one
       row per fiber row given
-    * ``chain``   → ``(ir.nseg_out, links[-1].out_flat_dim)``
+    * ``chain``   → ``(ir.nseg_out, links[-1].out_flat_dim)``;
+      ``layout`` is the chain's :class:`ChainLayout`, ``link_tables``
+      one :class:`IndexTables` per link (of :func:`link_stage`) and
+      ``link_arrays`` each link's other operand rows (one row per
+      level-``j`` segment, or one broadcast row)
     """
 
     target: str = "?"
@@ -254,10 +298,9 @@ class Lowering:
     def product(self, ir: StageIR, tables: IndexTables, padded, dtype):
         raise NotImplementedError
 
-    def chain(self, ir: StageIR, *args):
-        raise NotImplementedError(
-            "the fused-chain kernel (K3, run_fused_chain_stage) is not "
-            "ported yet: next slice, with autotune/")
+    def chain(self, ir: StageIR, layout: "ChainLayout",
+              tables: IndexTables, link_tables, padded, link_arrays, dtype):
+        raise NotImplementedError
 
 
 _LOWERINGS: dict[str, Lowering] = {}

@@ -21,6 +21,14 @@ The price is one round trip of the partials through device memory
 (``n_blocks * out_flat`` elements written and read back).  Product
 stages carry no cross-block state and use K2 unchanged.  Bound: bytes,
 as for every stage kernel.
+
+A fused chain (``chain``, the counterpart of ``MosaicGPULowering.chain``,
+``lower_gpu.py:152``) runs K4 partials and the combine onto the level-0
+rows, then per link one batched ``torch.einsum`` over all rows of that
+level (a plain product, which the reference leaves to XLA) and a combine
+onto the next level's rows.  The combine keys on the CSF's own
+child -> parent offsets, which equal the reference's per-block
+``_rows_to_parents`` map on a CSF operand (every fiber owns a block).
 """
 from __future__ import annotations
 
@@ -32,7 +40,9 @@ from repro_torch.kernels.codegen.ir import (IndexTables, Lowering, Stage,
                                             check_block_grid,
                                             register_lowering)
 from repro_torch.kernels.codegen.stages import (block_partials_plain,
-                                                check_layout, operand_rows,
+                                                check_layout,
+                                                link_flush_batched,
+                                                operand_rows,
                                                 run_product_stage)
 from repro_torch.kernels.segment import segment_combine
 
@@ -75,6 +85,21 @@ class HopperSplitKLowering(Lowering):
 
     def product(self, ir: StageIR, tables, padded, dtype):
         return run_product_stage(ir.stage, tables, padded, dtype)
+
+    def chain(self, ir: StageIR, layout, tables, link_tables, padded,
+              link_arrays, dtype):
+        acc_t = accumulator_type(dtype)
+        parts = splitk_partials(ir.stage, tables, layout.mask, padded)
+        rows = segment_combine(parts.to(acc_t), layout.block_ptr,
+                               ir.nseg_lvls[0])
+        for j, link in enumerate(ir.links):
+            per_row = link_flush_batched(link, rows, link_arrays[j],
+                                         ir.nseg_lvls[j], acc_t)
+            nxt = ir.nseg_lvls[j + 1] if j + 1 < len(ir.links) \
+                else ir.nseg_out
+            rows = segment_combine(per_row.contiguous(),
+                                   layout.parent_ptrs[j], nxt)
+        return rows.to(dtype)
 
 
 register_lowering(HopperSplitKLowering())

@@ -16,9 +16,23 @@ kernels on the H100 (CUDA sources in ``csrc/stage_kernels.cu``):
 * **K2, product** (:func:`run_product_stage`, replaces ``stages.py:155``
   ``run_product_stage``): one thread per (fiber, output column), no
   cross-block state.
+* **K3, fused chain** (:func:`run_fused_chain_stage`, replaces
+  ``stages.py:198`` ``run_fused_chain_stage``).  The TPU kernel runs a
+  whole chain of reducing terms in one sequential grid: one VMEM
+  crossing buffer per inner level, reset when that level's segment
+  opens and flushed through the link's einsum into the next level when
+  it closes.  Here one thread block owns one outermost segment and walks
+  its contiguous block range in ascending order, keeping the crossing
+  buffers in shared memory and the output row in its own slice of the
+  output: the TPU's order of additions, no atomics.  Link operands are
+  read by the block's segment id at their level (stride 0 when
+  broadcast).  A row with no blocks is written as zero (the TPU
+  kernel's ``row_written`` guard).  Hot spot, not solved here: there are
+  only as many thread blocks as outermost segments, and a skewed pattern
+  leaves a few of them walking most of the blocks.
 
-Both are bound by bytes: a stage does O(1) multiply-adds per element it
-reads.  Threads of one fiber row take neighbouring output columns, so
+All three are bound by bytes: a stage does O(1) multiply-adds per
+element it reads.  Threads of one fiber row take neighbouring output columns, so
 row reads and output writes coalesce.  Hot spots left for a later PR: K1
 runs a heavy segment's blocks on one SM, and with few segments it does
 not fill the card.
@@ -29,10 +43,12 @@ or raises.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import native
-from repro_torch.kernels.codegen.ir import (IndexTables, Lowering, Stage,
+from repro_torch.kernels.codegen.ir import (ChainLayout, ChainLink,
+                                            IndexTables, Lowering, Stage,
                                             StageIR, accumulator_type,
                                             check_block_grid, load_operands,
                                             register_lowering)
@@ -143,6 +159,117 @@ def run_product_stage(stage: Stage, tables: IndexTables, padded,
     return out.to(dtype)
 
 
+def link_flush_batched(link: ChainLink, rows, other, nrows: int, acc_t):
+    """One link's flush for every level row at once: ``einsum(link.expr)``
+    with the row axis kept, ``rows`` ``(nrows, buffer flat)`` and
+    ``other`` the link operand's rows (``(nrows, flat)`` or one broadcast
+    row) -> ``(nrows, link out flat)``."""
+    buf_op, op = link.operands
+    vals = [rows.to(acc_t).reshape((nrows,) + buf_op.shape)]
+    ins = ["Z" + buf_op.subs]
+    if op.fiber:
+        vals.append(other.to(acc_t).reshape((nrows,) + op.shape))
+        ins.append("Z" + op.subs)
+    else:
+        vals.append(other.to(acc_t).reshape(op.shape))
+        ins.append(op.subs)
+    out = torch.einsum(",".join(ins) + "->Z" + link.out_subs, *vals)
+    return out.reshape(nrows, -1)
+
+
+def run_fused_chain_stage_plain(ir: StageIR, layout: ChainLayout, padded,
+                                link_arrays, dtype) -> torch.Tensor:
+    """Plain version of K3, written level by level: the innermost stage's
+    block partials summed per level-0 row, then per link one batched
+    einsum over all rows and a segment sum onto the next level."""
+    acc_t = accumulator_type(dtype)
+    parts = block_partials_plain(ir.stage, layout.mask, padded)
+    rows = segment_combine_plain(parts.to(acc_t), layout.block_ptr,
+                                 ir.nseg_lvls[0])
+    for j, link in enumerate(ir.links):
+        per_row = link_flush_batched(link, rows, link_arrays[j],
+                                     ir.nseg_lvls[j], acc_t)
+        nxt = ir.nseg_lvls[j + 1] if j + 1 < len(ir.links) else ir.nseg_out
+        rows = segment_combine_plain(per_row, layout.parent_ptrs[j], nxt)
+    return rows.to(dtype)
+
+
+def run_fused_chain_stage(ir: StageIR, layout: ChainLayout,
+                          tables: IndexTables, link_tables, padded,
+                          link_arrays, dtype) -> torch.Tensor:
+    """K3: the whole reducing chain ``ir`` (innermost ``ir.stage``, then
+    ``ir.links`` outward) in one kernel -> ``(ir.nseg_out, last link's
+    out flat)`` in ``dtype``, accumulated at :func:`accumulator_type`."""
+    stage, links = ir.stage, ir.links
+    P = layout.padded_len
+    check_block_grid(P, stage.block)
+    if layout.mask.device.type == "cpu":
+        return run_fused_chain_stage_plain(ir, layout, padded, link_arrays,
+                                           dtype)
+    acc_t = accumulator_type(dtype)
+    rows, strides = operand_rows(stage, padded, P, acc_t)
+    check_layout(stage, tables, layout.mask, *rows)
+    dev = layout.mask.device
+    nblocks = P // stage.block
+    nlinks = len(links)
+    native.check_cuda_tensors(layout.levels, dtype=torch.int32)
+    native.check_cuda_tensors(layout.out_block_ptr, dtype=torch.int64)
+    if layout.levels.shape != (3 * nlinks, nblocks) or \
+            layout.out_block_ptr.shape != (ir.nseg_out + 1,):
+        raise ValueError(f"chain {stage.expr}: layout levels "
+                         f"{tuple(layout.levels.shape)}, out_block_ptr "
+                         f"{tuple(layout.out_block_ptr.shape)} for "
+                         f"{nlinks} links, {nblocks} blocks, "
+                         f"{ir.nseg_out} rows")
+    # widths along the chain: stage -> buffer 0 -> link 0 -> buffer 1 ...
+    widths = [stage.out_flat_dim] + [link.out_flat_dim for link in links]
+    for j, link in enumerate(links):
+        if link.operands[0].flat_dim != widths[j]:
+            raise ValueError(f"chain link {link.expr} reads a buffer of "
+                             f"{link.operands[0].flat_dim}, not {widths[j]}")
+    offsets = np.concatenate([[0], np.cumsum(widths[:-1])])
+    # desc passes raw pointers: ``others`` keeps each converted operand
+    # alive until the launch is queued on the stream
+    others = []
+    desc = []
+    for j, (link, arr, tab) in enumerate(zip(links, link_arrays,
+                                             link_tables)):
+        op = link.operands[1]
+        want = (ir.nseg_lvls[j] if op.fiber else 1, op.flat_dim)
+        other = arr.to(acc_t).contiguous()
+        if other.shape != want:
+            raise ValueError(f"chain link {link.expr}: operand rows "
+                             f"{tuple(other.shape)}, expected {want}")
+        native.check_cuda_tensors(other, tab.out_ptr, layout.mask)
+        native.check_cuda_tensors(tab.out_ptr, tab.a_idx, tab.b_idx,
+                                  dtype=torch.int32)
+        others.append(other)
+        dst = int(offsets[j + 1]) if j + 1 < nlinks else -1
+        # the kernel's kLinkFields: operand rows and stride, index table,
+        # buffer read (width, offset), buffer written (width, offset)
+        desc += [other.data_ptr(), op.flat_dim if op.fiber else 0,
+                 tab.out_ptr.data_ptr(), tab.a_idx.data_ptr(),
+                 tab.b_idx.data_ptr(), widths[j], int(offsets[j]),
+                 widths[j + 1], dst]
+    desc_t = torch.tensor(desc, dtype=torch.int64).to(dev)
+    w_out = widths[-1]
+    out = torch.empty((ir.nseg_out, w_out), dtype=acc_t, device=dev)
+    tx = native.column_threads(stage.out_flat_dim)
+    smem = (256 + int(offsets[-1])) * out.element_size()
+    if smem > native.MAX_SHARED_BYTES:
+        raise ValueError(f"chain {stage.expr}: crossing buffers of "
+                         f"{smem} bytes exceed the shared memory of a "
+                         f"thread block")
+    native.check_grid(ir.nseg_out, 1)
+    if ir.nseg_out * w_out:
+        native.launch("chain", acc_t, dev, rows[0], strides[0], rows[1],
+                      strides[1], layout.mask, stage.block, tables.out_ptr,
+                      tables.a_idx, tables.b_idx, stage.out_flat_dim, tx,
+                      nlinks, layout.levels, nblocks, desc_t,
+                      layout.out_block_ptr, ir.nseg_out, w_out, smem, out)
+    return out.to(dtype)
+
+
 class HopperLowering(Lowering):
     """The segment-loop target, registered as ``"hopper"`` — the
     lowering behind ``make_executor(backend="cuda")``."""
@@ -155,6 +282,11 @@ class HopperLowering(Lowering):
 
     def product(self, ir: StageIR, tables, padded, dtype):
         return run_product_stage(ir.stage, tables, padded, dtype)
+
+    def chain(self, ir: StageIR, layout, tables, link_tables, padded,
+              link_arrays, dtype):
+        return run_fused_chain_stage(ir, layout, tables, link_tables,
+                                     padded, link_arrays, dtype)
 
 
 register_lowering(HopperLowering())

@@ -1,9 +1,10 @@
 """Build, load and launch the package's hand-written CUDA kernels.
 
 The kernels live in ``repro_torch/csrc/*.cu`` as plain C entry points.
-At first use :func:`load_library` compiles the sources with one
-``nvcc -shared`` call for ``sm_90a`` into a shared library under
-``repro_torch/_build/`` and loads it with ``ctypes``.  The library's name carries a hash of the sources and
+At first use :func:`load_library` compiles each source with its own
+``nvcc -c`` for ``sm_90a`` (all started together), links the objects
+into one shared library under ``repro_torch/_build/`` and loads it with
+``ctypes``.  The library's name carries a hash of the sources and
 flags, so an edited source is rebuilt and an unchanged one is reused.
 Nothing here runs at import time: this module imports on hosts without
 CUDA, and only a launch needs the toolkit.
@@ -45,6 +46,7 @@ class KernelInfo:
 
 
 _SOURCE = "src/repro_torch/csrc/stage_kernels.cu"
+_PAPER = "src/repro_torch/csrc/paper_kernels.cu"
 
 #: Every kernel this package launches, by C entry-point stem.
 KERNELS: dict[str, KernelInfo] = {
@@ -60,17 +62,35 @@ KERNELS: dict[str, KernelInfo] = {
     "combine": KernelInfo(
         "K4 segment combine", _SOURCE,
         "src/repro/kernels/codegen/lower_gpu.py:109"),
+    "chain": KernelInfo(
+        "K3 fused chain", _SOURCE,
+        "src/repro/kernels/codegen/stages.py:198"),
+    "mttkrp": KernelInfo(
+        "K5 mttkrp", _PAPER, "src/repro/kernels/mttkrp.py:41"),
+    "ttmc": KernelInfo(
+        "K6 ttmc", _PAPER, "src/repro/kernels/ttmc.py:33"),
+    "tttp": KernelInfo(
+        "K7 tttp", _PAPER, "src/repro/kernels/tttp.py:24"),
 }
+
+#: Shared memory one thread block may use on the H100 (227 KB, above
+#: 48 KB only after ``cudaFuncSetAttribute``, which the entry points do).
+MAX_SHARED_BYTES = 232448
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
-# C signatures, in the order of the entry points in csrc/stage_kernels.cu
-# (every pointer and the stream as c_void_p, or ctypes would cut them)
+# C signatures of the entry points in csrc/*.cu (every pointer and the
+# stream as c_void_p, or ctypes would cut them)
 _SIGNATURES = {
     "reduce": [_P, _L, _P, _L, _P, _P, _L, _I, _P, _P, _P, _I, _I, _P, _P],
     "splitk": [_P, _L, _P, _L, _P, _L, _I, _P, _P, _P, _I, _I, _P, _P],
     "product": [_P, _L, _P, _L, _L, _P, _P, _P, _I, _I, _P, _P],
     "combine": [_P, _P, _L, _I, _P, _P],
+    "chain": [_P, _L, _P, _L, _P, _I, _P, _P, _P, _I, _I, _I, _P, _L, _P,
+              _P, _L, _I, _I, _P, _P],
+    "mttkrp": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _P, _P],
+    "ttmc": [_P, _P, _P, _L, _I, _I, _I, _I, _P, _P],
+    "tttp": [_P, _P, _P, _P, _L, _I, _I, _P, _P],
 }
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
@@ -93,10 +113,26 @@ def _nvcc() -> str:
     return nvcc
 
 
+def _run(cmds: list[list[str]]) -> str:
+    """Run the commands all at once; raise with the output of the first
+    that fails, else return their outputs joined."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode:
+            raise RuntimeError(f"kernel build failed:\n$ {' '.join(cmd)}"
+                               f"\n{out}")
+    return "".join(outs)
+
+
 def build() -> tuple[Path, float, str]:
     """Compile ``csrc/*.cu`` into one shared library (reused when the
-    sources and flags are unchanged).  Returns its path, the seconds
-    spent building (0.0 when it was reused) and the compiler's report."""
+    sources and flags are unchanged): one ``nvcc -c`` per source, all
+    started together, then one link.  Returns the library's path, the
+    seconds spent building (0.0 when it was reused) and the compiler's
+    report."""
     sources = sorted(CSRC_DIR.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
@@ -106,16 +142,17 @@ def build() -> tuple[Path, float, str]:
         return lib, 0.0, ""
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
+    report = _run([[_nvcc(), *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                   for src, obj in zip(sources, objs)])
     tmp = BUILD_DIR / f"{lib.name}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-shared", *map(str, sources),
-           "-o", str(tmp)]
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
-                          stderr=subprocess.STDOUT, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"kernel build failed:\n$ {' '.join(cmd)}\n"
-                           f"{proc.stdout}")
+    report += _run([[_nvcc(), *NVCC_FLAGS, "-shared", *map(str, objs),
+                     "-o", str(tmp)]])
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, lib)           # atomic: concurrent builders agree
-    return lib, time.perf_counter() - t0, proc.stdout
+    return lib, time.perf_counter() - t0, report
 
 
 @functools.cache

@@ -1,0 +1,129 @@
+"""The paper's hand-written SpTTN kernels K5-K7 on the H100.
+
+Each wrapper checks its inputs and launches its CUDA kernel
+(``csrc/paper_kernels.cu``) on CUDA tensors, or runs its plain version
+(the oracles of :mod:`repro_torch.kernels.ref` on the same padded
+inputs) on CPU tensors.  Inputs are in the padded per-segment layout of
+:func:`~repro_torch.kernels.util.padded_segment_layout`: segment ``s``
+owns blocks ``[block_ptr[s], block_ptr[s+1])`` of ``block`` rows each.
+
+* **K5** :func:`mttkrp_kernel` replaces ``src/repro/kernels/mttkrp.py:41``
+  ``mttkrp_pallas``: ``out[s, :] += vals*mask*B[j]*C[k]`` over the
+  segment's rows.  One 1024-thread block per (segment, column tile)
+  walks the segment's rows in lanes that meet in a fixed tree.  Hot
+  spot: the skewed slice sizes leave a few segments to a few blocks.
+* **K6** :func:`ttmc_kernel` replaces ``src/repro/kernels/ttmc.py:33``
+  ``ttmc_pallas``: ``out[s] += ugᵀ·xf`` per block of fibers, giving
+  ``(nseg, R, S)``, the product written in the kernel's body.
+* **K7** :func:`tttp_kernel` replaces ``src/repro/kernels/tttp.py:24``
+  ``tttp_pallas``: ``out[n] = vals[n]·Σ_r U·V·W``, a warp per row, no
+  cross-block state.
+
+All three are bound by bytes (a few multiply-adds per element read).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import native, ref
+from repro_torch.kernels.codegen.ir import accumulator_type
+
+
+def _slot_segments(block_ptr: torch.Tensor, block: int,
+                   nseg: int) -> torch.Tensor:
+    """The segment of every padded row, from the block offsets."""
+    blocks = torch.repeat_interleave(
+        torch.arange(nseg, device=block_ptr.device), block_ptr.diff())
+    return torch.repeat_interleave(blocks, block)
+
+
+def _check(block_ptr, nseg: int, block: int, nrows: int, *rows) -> None:
+    native.check_cuda_tensors(*rows, block_ptr)
+    native.check_cuda_tensors(block_ptr, dtype=torch.int64)
+    if block_ptr.shape != (nseg + 1,) or nrows % block:
+        raise ValueError(f"{nrows} padded rows, block {block}, block_ptr "
+                         f"{tuple(block_ptr.shape)} for {nseg} segments")
+
+
+def mttkrp_kernel_plain(vals, bg, cg, mask, block_ptr, nseg: int,
+                        block: int) -> torch.Tensor:
+    """Plain version of K5: the MTTKRP oracle on the padded rows."""
+    seg = _slot_segments(block_ptr, block, nseg)
+    return ref.mttkrp_ref(vals * mask.to(vals.dtype), bg, cg, seg, nseg)
+
+
+def mttkrp_kernel(vals, bg, cg, mask, block_ptr, nseg: int,
+                  block: int) -> torch.Tensor:
+    """K5: vals/mask ``(P,)``, bg/cg ``(P, R)`` -> ``(nseg, R)``."""
+    if vals.device.type == "cpu":
+        return mttkrp_kernel_plain(vals, bg, cg, mask, block_ptr, nseg,
+                                   block)
+    dtype = accumulator_type(bg.dtype)
+    vals, bg, cg = (t.to(dtype).contiguous() for t in (vals, bg, cg))
+    P, R = bg.shape
+    _check(block_ptr, nseg, block, P, vals, bg, cg, mask)
+    native.check_cuda_tensors(mask, dtype=torch.float32)
+    if vals.shape != (P,) or cg.shape != (P, R) or mask.shape != (P,):
+        raise ValueError("mttkrp_kernel: vals/mask (P,), bg/cg (P, R)")
+    out = torch.empty((nseg, R), dtype=dtype, device=bg.device)
+    tx = native.column_threads(R)
+    native.check_grid(nseg, -(-R // tx))
+    if nseg * R:
+        native.launch("mttkrp", dtype, bg.device, vals, bg, cg, mask,
+                      block_ptr, nseg, block, R, tx, out)
+    return out
+
+
+def ttmc_kernel_plain(ug, xf, block_ptr, nseg: int,
+                      block: int) -> torch.Tensor:
+    """Plain version of K6: the TTMc fiber oracle on the padded rows."""
+    seg = _slot_segments(block_ptr, block, nseg)
+    return ref.ttmc_fiber_ref(xf, ug, seg, nseg)
+
+
+def ttmc_kernel(ug, xf, block_ptr, nseg: int, block: int) -> torch.Tensor:
+    """K6: ug ``(P, R)``, xf ``(P, S)`` (pad rows zero) ->
+    ``(nseg, R, S)``."""
+    if ug.device.type == "cpu":
+        return ttmc_kernel_plain(ug, xf, block_ptr, nseg, block)
+    dtype = accumulator_type(torch.promote_types(ug.dtype, xf.dtype))
+    ug, xf = ug.to(dtype).contiguous(), xf.to(dtype).contiguous()
+    P, R = ug.shape
+    S = xf.shape[1]
+    _check(block_ptr, nseg, block, P, ug, xf)
+    if xf.shape[0] != P:
+        raise ValueError("ttmc_kernel: ug and xf need the same rows")
+    # fibers staged in shared memory per step: at most 32, within 48 KB
+    chunk = max(1, min(32, 49152 // ((R + S) * ug.element_size())))
+    out = torch.empty((nseg, R, S), dtype=dtype, device=ug.device)
+    native.check_grid(nseg, -(-(R * S) // 256))
+    if nseg * R * S:
+        native.launch("ttmc", dtype, ug.device, ug, xf, block_ptr, nseg,
+                      block, R, S, chunk, out)
+    return out
+
+
+def tttp_kernel_plain(vals, ug, vg, wg) -> torch.Tensor:
+    """Plain version of K7: the TTTP oracle."""
+    return ref.tttp_ref(vals, ug, vg, wg)
+
+
+def tttp_kernel(vals, ug, vg, wg, block: int = 512) -> torch.Tensor:
+    """K7: vals ``(n,)``, ug/vg/wg ``(n, R)`` -> ``(n,)``; ``block`` rows
+    per thread block.  Rows map 1:1, so no padding is needed."""
+    if vals.device.type == "cpu":
+        return tttp_kernel_plain(vals, ug, vg, wg)
+    dtype = accumulator_type(ug.dtype)
+    vals, ug, vg, wg = (t.to(dtype).contiguous()
+                        for t in (vals, ug, vg, wg))
+    native.check_cuda_tensors(vals, ug, vg, wg)
+    n, R = ug.shape
+    if vals.shape != (n,) or vg.shape != (n, R) or wg.shape != (n, R) \
+            or block < 1:
+        raise ValueError("tttp_kernel: vals (n,), ug/vg/wg (n, R)")
+    out = torch.empty((n,), dtype=dtype, device=ug.device)
+    native.check_grid(-(-n // block), 1)
+    if n:
+        native.launch("tttp", dtype, ug.device, vals, ug, vg, wg, n, block,
+                      R, out)
+    return out

@@ -1,4 +1,6 @@
-"""The port's CUDA kernels on the card: each against its plain version.
+"""The port's CUDA kernels on the card: each against its plain version
+(K1, K2, K4 and the combine; K3, the fused chain, on 2- and 3-level
+chains; K5-K7, the paper kernels).
 
 These tests need an NVIDIA GPU and ``nvcc`` (the kernels are built from
 ``src/repro_torch/csrc`` at first use), so they carry the ``cuda``
@@ -19,7 +21,8 @@ from repro_torch.core import spec as S  # noqa: E402
 from repro_torch.core.executor import (CSFArrays,  # noqa: E402
                                        execute_plan, reference_execute)
 from repro_torch.core.planner import plan  # noqa: E402
-from repro_torch.kernels import native  # noqa: E402
+from repro_torch.kernels import native, ops, paper  # noqa: E402
+from repro_torch.kernels.codegen.ir import ChainLayout  # noqa: E402
 from repro_torch.kernels.codegen import ir  # noqa: E402
 from repro_torch.kernels.codegen import lower_gpu, stages  # noqa: E402
 from repro_torch.kernels.segment import (segment_combine,  # noqa: E402
@@ -115,8 +118,9 @@ def test_reduce_and_splitk_kernels_match_plain(cuda, ops, out_subs,
     parts = lower_gpu.splitk_partials(st, tables, mask, padded)
     comb = segment_combine(parts, ptr, nseg)
     torch.cuda.synchronize()
-    assert native.launch_counts() == {"reduce": 1, "product": 0,
-                                      "splitk": 1, "combine": 1}
+    assert native.launch_counts() == {
+        "reduce": 1, "product": 0, "splitk": 1, "combine": 1, "chain": 0,
+        "mttkrp": 0, "ttmc": 0, "tttp": 0}
     _close(out, stages.run_reduce_stage_plain(st, ptr, mask, padded, dtype),
            dtype)
     _close(parts, stages.block_partials_plain(st, mask, padded), dtype)
@@ -190,3 +194,121 @@ def test_engines_on_the_card_match_algorithm2(cuda, backend, spec):
         assert counts["reduce"] + counts["product"] > 0
     if backend == "cuda-splitk" and not spec.output_is_sparse:
         assert counts["splitk"] > 0 and counts["combine"] > 0
+
+
+# --------------------------------------------------------------------- #
+# K3, the fused chain
+# --------------------------------------------------------------------- #
+CHAINS = [pytest.param(S.mttkrp(30, 20, 25, 8), (30, 20, 25), id="mttkrp"),
+          pytest.param(S.ttmc3(30, 20, 25, 4, 3), (30, 20, 25),
+                       id="ttmc3"),
+          pytest.param(S.ttmc4(12, 10, 9, 8, 3, 2, 4), (12, 10, 9, 8),
+                       id="ttmc4")]
+
+
+def _chain_call(monkeypatch, spec, shape, dtype, dev):
+    """Run ``spec``'s fused plan on ``dev`` through the ``cuda`` engine,
+    capturing the K3 call's arguments."""
+    csf = build_csf(random_sparse(shape, 0.05, seed=3,
+                                  distribution="frostt"))
+    rng = np.random.default_rng(1)
+    factors = {t.name: torch.from_numpy(rng.standard_normal(
+        [spec.dims[i] for i in t.indices])).to(dev, dtype)
+        for t in spec.inputs if not t.is_sparse}
+    p = plan(spec, nnz_levels=csf.nnz_levels())
+    calls = []
+    inner = stages.run_fused_chain_stage
+
+    def capture(*args):
+        calls.append(args)
+        return inner(*args)
+
+    monkeypatch.setattr(stages, "run_fused_chain_stage", capture)
+    arrays = CSFArrays.from_csf(csf, dev)
+    arrays.values = arrays.values.to(dtype)
+    out = execute_plan(p, arrays, factors, backend="cuda", block=8,
+                       strategy="fused")
+    monkeypatch.undo()
+    return out, calls, p, arrays, factors
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("spec,shape", CHAINS)
+def test_chain_kernel_matches_plain(cuda, monkeypatch, spec, shape, dtype):
+    native.reset_launch_counts()
+    out, calls, p, arrays, factors = _chain_call(monkeypatch, spec, shape,
+                                                 dtype, cuda)
+    torch.cuda.synchronize()
+    assert native.launch_counts()["chain"] == 1 and len(calls) == 1
+    ir_, layout, tables, link_tables, padded, link_arrays, dt = calls[0]
+    _close(stages.run_fused_chain_stage(*calls[0]),
+           stages.run_fused_chain_stage_plain(ir_, layout, padded,
+                                              link_arrays, dt), dtype)
+    want = execute_plan(p, arrays, factors, backend="torch")
+    _close(out, want, dtype)
+    split = execute_plan(p, arrays, factors, backend="cuda-splitk",
+                         block=8, strategy="fused")
+    _close(split, want, dtype)
+
+
+def test_chain_kernel_zeroes_an_outer_row_with_no_blocks(cuda,
+                                                         monkeypatch):
+    """An outermost segment that owns no block (a row the layout never
+    reaches) comes back exactly zero, as the TPU kernel's ``row_written``
+    guard makes it."""
+    import dataclasses
+    _, calls, *_ = _chain_call(monkeypatch, S.mttkrp(30, 20, 25, 8),
+                               (30, 20, 25), torch.float32, cuda)
+    ir_, layout, tables, link_tables, padded, link_arrays, dt = calls[0]
+    k = ir_.nseg_out // 2                  # insert an empty row before k
+
+    def widen(ptr):
+        return torch.cat([ptr[:k + 1], ptr[k:]])
+
+    layout2 = ChainLayout(
+        mask=layout.mask, levels=layout.levels,
+        out_block_ptr=widen(layout.out_block_ptr),
+        block_ptr=layout.block_ptr,
+        parent_ptrs=layout.parent_ptrs[:-1] +
+        (widen(layout.parent_ptrs[-1]),))
+    ir2 = dataclasses.replace(ir_, nseg_out=ir_.nseg_out + 1)
+    got = stages.run_fused_chain_stage(ir2, layout2, tables, link_tables,
+                                       padded, link_arrays, dt)
+    want = stages.run_fused_chain_stage_plain(ir2, layout2, padded,
+                                              link_arrays, dt)
+    torch.cuda.synchronize()
+    assert torch.equal(got[k].cpu(), torch.zeros_like(got[k].cpu()))
+    _close(got, want, torch.float32)
+
+
+# --------------------------------------------------------------------- #
+# K5-K7, the paper kernels
+# --------------------------------------------------------------------- #
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paper_kernels_match_plain(cuda, dtype):
+    csf = build_csf(random_sparse((40, 30, 35), 0.05, seed=2,
+                                  distribution="frostt"))
+    rng = np.random.default_rng(4)
+
+    def mat(n, r):
+        return torch.from_numpy(rng.standard_normal((n, r))).to(cuda, dtype)
+
+    b, c = mat(30, 33), mat(35, 33)           # R not a power of two
+    native.reset_launch_counts()
+    got = ops.mttkrp(csf, b, c, block=16)
+    _close(got, ops.mttkrp(csf, b, c, use_kernel=False), dtype)
+    lay = ops.ttmc_fiber_layout(csf, block=8)
+    ug, xf = mat(csf.nfib[2], 5), mat(csf.nfib[2], 7)
+    got = ops.ttmc_fiber(ug, xf, lay)
+    _close(got, ops.ttmc_fiber(ug, xf, lay, use_kernel=False), dtype)
+    u, v, w = mat(40, 45), mat(30, 45), mat(35, 45)
+    got = ops.tttp(csf, u, v, w, block=64)
+    _close(got, ops.tttp(csf, u, v, w, use_kernel=False), dtype)
+    torch.cuda.synchronize()
+    counts = native.launch_counts()
+    assert (counts["mttkrp"], counts["ttmc"], counts["tttp"]) == (1, 1, 1)
+    # each wrapper against its own plain version on the same inputs
+    gather, mask, ptr = ops.layout_arrays(lay, cuda)
+    _close(paper.ttmc_kernel(ug[gather], xf[gather], ptr, lay.nseg, 8),
+           paper.ttmc_kernel_plain(ug[gather], xf[gather], ptr, lay.nseg,
+                                   8), dtype)

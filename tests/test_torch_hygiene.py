@@ -5,9 +5,9 @@
   a fresh interpreter that plans and runs a kernel on the CPU;
 * on CPU tensors no kernel launches (every launch count stays 0), and a
   CUDA-less host never falls back to the CPU unless asked;
-* what this slice has not ported (the fused-chain kernel, autotuning,
-  sliced execution) raises ``NotImplementedError`` instead of quietly
-  running something else.
+* what the port has not ported yet (sliced execution under a memory
+  budget, the LM model stack's kernel passthroughs) raises
+  ``NotImplementedError`` instead of quietly running something else.
 """
 import ast
 import dataclasses
@@ -24,7 +24,8 @@ from repro_torch.core import spec as S  # noqa: E402
 from repro_torch.core.executor import (CSFArrays, execute_plan,  # noqa: E402
                                        make_executor)
 from repro_torch.core.planner import plan  # noqa: E402
-from repro_torch.kernels import native  # noqa: E402
+from repro_torch.autotune import TunerConfig, tune  # noqa: E402
+from repro_torch.kernels import native, ops  # noqa: E402
 from repro_torch.kernels.segment import segment_combine  # noqa: E402
 from repro_torch.sparse import build_csf, random_sparse  # noqa: E402
 
@@ -98,10 +99,16 @@ def test_cpu_tensors_launch_no_kernel():
     arrays = CSFArrays.from_csf(csf, device="cpu")
     native.reset_launch_counts()
     for backend in ("torch", "cuda", "cuda-splitk"):
-        for strategy in ("row", "segsum"):
+        for strategy in ("row", "segsum", "fused"):
             kw = {} if backend == "torch" else {"strategy": strategy,
                                                 "block": 8}
             execute_plan(p, arrays, factors, backend=backend, **kw)
+    b, c = (torch.from_numpy(factors[k]) for k in ("B", "C"))
+    ops.mttkrp(csf, b, c, block=8)
+    ops.tttp(csf, torch.ones(8, 4), b, c, block=8)
+    lay = ops.ttmc_fiber_layout(csf, block=8)
+    ops.ttmc_fiber(torch.ones(csf.nfib[2], 2), torch.ones(csf.nfib[2], 3),
+                   lay)
     assert native.launch_counts() == {s: 0 for s in native.KERNELS}
 
 
@@ -122,18 +129,29 @@ def test_no_cuda_means_an_error_not_the_cpu(monkeypatch):
 
 def test_unported_parts_raise_not_implemented():
     spec, csf, factors, p = _mttkrp()
-    with pytest.raises(NotImplementedError, match="K3"):
-        make_executor(spec, p.path, p.order, backend="cuda",
-                      strategy="fused")
-    fused = dataclasses.replace(p, backend="cuda-splitk", fused=True)
-    with pytest.raises(NotImplementedError, match="K3"):
-        execute_plan(fused, csf, factors, device="cpu")
+    arrays = CSFArrays.from_csf(csf, device="cpu")
+    sliced = dataclasses.replace(p, slice_mode="i", slice_chunks=2)
     with pytest.raises(NotImplementedError, match="slicing"):
         execute_plan(p, csf, factors, device="cpu", memory_budget=1 << 20)
-    with pytest.raises(NotImplementedError, match="autotune"):
-        plan(spec, autotune=True)
+    with pytest.raises(NotImplementedError, match="slicing"):
+        execute_plan(sliced, arrays, factors)
     with pytest.raises(NotImplementedError, match="slicing"):
         plan(spec, memory_budget=1 << 20)
+    with pytest.raises(NotImplementedError, match="slicing"):
+        plan(spec, autotune=True, csf=arrays, memory_budget=1 << 20)
+    with pytest.raises(NotImplementedError, match="slicing"):
+        tune(spec, csf=arrays, memory_budget=1 << 20)
+    for name in ("grouped_matmul", "wkv6", "rglru", "local_attn"):
+        with pytest.raises(NotImplementedError, match="model stack"):
+            getattr(ops, name)()
+    # what this port once left out now runs: the fused chain on both
+    # code-generator engines, and measured planning
+    for backend in ("cuda", "cuda-splitk"):
+        fused = dataclasses.replace(p, backend=backend, fused=True, block=8)
+        assert tuple(execute_plan(fused, arrays, factors).shape) == (8, 4)
+    tuned = plan(spec, autotune=True, csf=arrays,
+                 tuner=TunerConfig(max_candidates=1, repeats=1))
+    assert tuned.stats.candidates_timed >= 1
 
 
 def test_engine_kwargs_are_checked():
@@ -152,7 +170,8 @@ def test_kernel_registry_names_real_sources_and_tpu_kernels():
     """Every kernel names its CUDA source and the Pallas function it
     replaces (whose body reaches ``pl.pallas_call``)."""
     assert set(native.KERNELS) == {"reduce", "product", "splitk",
-                                   "combine"}
+                                   "combine", "chain", "mttkrp", "ttmc",
+                                   "tttp"}
     for info in native.KERNELS.values():
         assert os.path.exists(os.path.join(REPO, info.source))
         path, line = info.replaces.split(":")

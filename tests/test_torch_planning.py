@@ -227,9 +227,15 @@ def test_verify_plan_gives_the_same_codes(spec_name, args, how):
         assert not t_verify(tm).ok or how in ({"fused": True},)
 
 
-def test_unported_planner_hooks_raise():
+def test_unported_planner_hooks_raise(monkeypatch):
+    """Sliced planning is not ported and raises; measured planning is,
+    and without a card it refuses to fall back to the CPU unless given
+    an operand there."""
     spec = TS.mttkrp(6, 7, 8, 4)
-    with pytest.raises(NotImplementedError, match="autotune"):
-        tplanner.plan(spec, autotune=True)
     with pytest.raises(NotImplementedError, match="slicing"):
         tplanner.plan(spec, memory_budget=1 << 20)
+    with pytest.raises(NotImplementedError, match="slicing"):
+        tplanner.plan(spec, autotune=True, memory_budget=1 << 20)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tplanner.plan(spec, autotune=True)
