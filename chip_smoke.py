@@ -30,21 +30,37 @@ any failure exits non-zero):
 6. The paper kernels through ``kernels/ops.py`` on the 16 M tensor:
    ``mttkrp`` (K5, block 256), ``ttmc_fiber`` (K6, block 128) and
    ``tttp`` (K7, block 512), each against the ``torch`` engine's result.
+7. The LM kernels through ``kernels/ops.py``, at the widths of
+   ``repro_torch.configs``, on data drawn from ``--seed`` by a
+   ``torch.Generator`` on the card, each path against its
+   ``use_kernel=False`` oracle: granite-moe-1b-a400m's expert FFN (the
+   three expert GEMMs of K8, E = 32, D = 1024, F = 512, 4,096 tokens at
+   the dropless capacity C = 4,096; bf16, and f32 once);
+   recurrentgemma-9b's local attention (K9, B = 1, T = 32,768, 16 heads
+   of 256, window 2,048, the single kv head expanded to 16) and
+   gemma3-1b's (4 heads, window 512), bf16; rwkv6-3b's WKV6 (K10, B = 8,
+   T = 4,096, 40 heads of 64; bf16 and f32); recurrentgemma-9b's RG-LRU
+   (K11, B = 8, T = 4,096, D = 4,096; bf16 and f32).
 
 Every path is timed (CUDA events, median of 10 after 2 warm-ups), its
 peak memory read, and one call traced with ``torch.profiler`` after a
 warm-up step with every event kept (device time by kernel and the
 device's idle share: ``PROFILE`` lines); a trace that holds another
-number of launches of a kernel than the launch counts is taken again,
-and the run fails after three such traces.
+number of launches of a kernel than the launch counts is taken again
+with twice the idle padding around the traced call, and the run fails
+after six such traces.
 Then one counted run, with the launch counts zeroed just before it and
 read just after, records the inputs of every kernel it launches; it
 fails if a kernel the path runs was not launched.  Per kernel, on the
 inputs the path gave it: the kernel against its plain PyTorch version
 (tolerance ``1e-4 * max(1, max|plain|)``: float32 with another
-summation order), kernel / plain / library-call times, and the least
+summation order; ``1e-2`` for bf16 results, where a float32 sum in
+another order can move a value across a bf16 rounding boundary, one ulp
+being 2**-8 of it), kernel / plain / library-call times, and the least
 time the card could take for the same work (bytes over 3.35 TB/s, or
-operations over 67 TFLOP/s float32, whichever is larger).
+operations over the peak for their type, whichever is larger: 989
+TFLOP/s for bf16 matrix products on the tensor cores (K8, K9), 67
+TFLOP/s float32 for everything else, which runs on the CUDA cores).
 
 Float32 products run in full float32: TF32 is switched off for matmul
 and cuDNN.  The last three lines are the ``kernels`` summary, the card's
@@ -70,6 +86,8 @@ NIPS_SHAPE = (2482, 2862, 14036, 17)     # FROSTT nips
 NIPS_NNZ = 3_101_609
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, published
 FP32_OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
+BF16_TENSOR_OPS_PER_S = 989e12   # H100 SXM bf16 tensor cores, dense
+MOE_TOKENS = 4096                # K8's tokens per expert-FFN call
 # the autotuned phase keeps the longest head of the model ranking whose
 # every candidate's largest buffer stays under this (the card has 80 GB;
 # the operand, its layouts and the other buffers of a call need the rest)
@@ -77,7 +95,11 @@ FIT_BYTES = 24 * 2**30
 # kernel stem -> its name in a profiler trace
 TRACE_NAMES = {stem: f"spttn::{stem}_kernel<" for stem in (
     "reduce", "product", "splitk", "combine", "chain", "mttkrp", "ttmc",
-    "tttp")}
+    "tttp", "grouped_matmul", "local_attn", "wkv6", "rglru")}
+# the kernels whose work is a matrix product (bound by the tensor cores
+# in bf16); the LM wrappers' modules
+MATMUL_STEMS = ("grouped_matmul", "local_attn")
+LM_STEMS = ("grouped_matmul", "local_attn", "wkv6", "rglru")
 
 
 def log(*args) -> None:
@@ -103,9 +125,12 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
 
 
 def max_err(got, want) -> tuple[float, float]:
-    """Max |got - want| and the tolerance 1e-4 * max(1, max|want|)."""
+    """Max |got - want| and the tolerance rel * max(1, max|want|), rel
+    1e-4, or 1e-2 for a bf16 result."""
     import torch
-    got = torch.as_tensor(got).double().cpu()
+    got = torch.as_tensor(got)
+    rel = 1e-2 if got.dtype == torch.bfloat16 else 1e-4
+    got = got.double().cpu()
     want = torch.as_tensor(want).double().cpu()
     if got.shape != want.shape:
         raise AssertionError(f"shape {tuple(got.shape)} != "
@@ -114,7 +139,7 @@ def max_err(got, want) -> tuple[float, float]:
         raise AssertionError("non-finite values in a result")
     scale = max(1.0, float(want.abs().max())) if want.numel() else 1.0
     err = float((got - want).abs().max()) if want.numel() else 0.0
-    return err, 1e-4 * scale
+    return err, rel * scale
 
 
 def check(name: str, got, want) -> float:
@@ -127,17 +152,24 @@ def check(name: str, got, want) -> float:
     return err
 
 
-def profile_path(label: str, fn, event_ms: float, attempts: int = 3) -> None:
+def profile_path(label: str, fn, event_ms: float, pad_s: float,
+                 attempts: int = 6) -> float:
     """Device time by kernel for one call of ``fn`` (torch.profiler), and
     the device's idle share of the call's unprofiled CUDA-event time.
 
     One warm-up step runs under the profiler before the traced step (the
     first profiled call lost launches), and every event is kept
     (``acc_events``).  The traced step's launches of each kernel of this
-    package must equal its launch count over the same call.  The trace
-    still drops a launch now and then, so an incomplete trace is taken
-    again, up to ``attempts`` times; the ``PROFILE`` line says how many
-    it took, and the run fails when none was complete."""
+    package must equal its launch count over the same call.  The
+    profiler places device events by a clock that drifts from the host's
+    during a run (its own warnings read "GPU op timestamp < runtime
+    timestamp" by 30 ms, then 105 ms 13 s later), and drops what falls
+    outside the traced step: so the traced call is padded with ``pad_s``
+    of idle host time on both sides, and an incomplete trace is taken
+    again with twice the padding, up to ``attempts`` times.  The
+    ``PROFILE`` line gives the attempts and the padding; the run fails
+    when no trace was complete.  Returns the padding that worked (the
+    caller starts the next path with it)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -151,9 +183,11 @@ def profile_path(label: str, fn, event_ms: float, attempts: int = 3) -> None:
             fn()
             torch.cuda.synchronize()
             prof.step()
+            time.sleep(pad_s)
             native.reset_launch_counts()
             fn()
             torch.cuda.synchronize()
+            time.sleep(pad_s)
             prof.step()
         counts = native.launch_counts()
         # the step annotation spans the whole step: it is no device work
@@ -165,8 +199,10 @@ def profile_path(label: str, fn, event_ms: float, attempts: int = 3) -> None:
                   for stem, name in TRACE_NAMES.items()}
         if traced == counts:
             break
-        log(f"PROFILE {label}: attempt {attempt}: the trace holds "
+        log(f"PROFILE {label}: attempt {attempt} (padding {pad_s} "
+            f"s): {len(events)} kinds of device event; the trace holds "
             f"launches {traced}, the launch counts say {counts}")
+        pad_s *= 2
     else:
         raise AssertionError(f"PROFILE {label}: no complete trace in "
                              f"{attempts} attempts")
@@ -176,9 +212,10 @@ def profile_path(label: str, fn, event_ms: float, attempts: int = 3) -> None:
     log("PROFILE " + json.dumps({
         "path": label, "event_ms": event_ms, "device_busy_ms": busy,
         "idle_share": 1 - busy / event_ms if rows else None,
-        "launches": counts, "attempts": attempt,
+        "launches": counts, "attempts": attempt, "padding_s": pad_s,
         "top": [{"kernel": k[:100], "calls": c, "device_ms": t}
                 for t, c, k in rows[:12]]}))
+    return pad_s
 
 
 # --------------------------------------------------------------------- #
@@ -278,6 +315,110 @@ def recording_paper(sink: dict):
     return lambda: [setattr(paper, n, f) for n, f in inners.items()]
 
 
+def recording_lm(sink: dict):
+    """Shadow the K8-K11 wrappers (which ``kernels/ops.py`` calls through
+    their modules) with recorders of the first inputs of each (stem,
+    shapes, dtype)."""
+    import importlib
+    mods = {stem: importlib.import_module(f"repro_torch.kernels.{stem}")
+            for stem in LM_STEMS}
+    inners = {stem: getattr(m, f"{stem}_kernel") for stem, m in mods.items()}
+
+    def recorder(stem):
+        def wrapper(*args):
+            key = (stem, tuple(tuple(a.shape) for a in args
+                               if hasattr(a, "shape")), args[0].dtype)
+            sink.setdefault(key, args)
+            return inners[stem](*args)
+        return wrapper
+
+    for stem, mod in mods.items():
+        setattr(mod, f"{stem}_kernel", recorder(stem))
+    return lambda: [setattr(mods[s], f"{s}_kernel", f)
+                    for s, f in inners.items()]
+
+
+def band_keys(T: int, window: int) -> int:
+    """Keys inside the causal band of width ``window``, summed over the
+    ``T`` query positions."""
+    w = min(window, T)
+    return w * (w + 1) // 2 + (T - w) * w
+
+
+def sdpa_band(q, k, v, window: int):
+    """The library yardstick of K9: ``scaled_dot_product_attention`` on
+    the memory-efficient backend with the band as a boolean mask (the
+    math backend would materialize the (BH, T, T) logits), or None and
+    the reason when no backend takes it."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    T = q.shape[1]
+    i = torch.arange(T, device=q.device)
+    mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+
+    def lib():
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            return F.scaled_dot_product_attention(q[None], k[None], v[None],
+                                                  attn_mask=mask)[0]
+    try:                       # the yardstick only: the port never calls it
+        lib()
+        torch.cuda.synchronize()
+    except (RuntimeError, torch.OutOfMemoryError) as e:
+        return None, f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+    return lib, "F.scaled_dot_product_attention, EFFICIENT_ATTENTION, " \
+        "boolean band mask"
+
+
+def lm_entries(captured: dict) -> list[tuple]:
+    """Each captured K8-K11 call, as :func:`stage_entries`."""
+    import importlib
+
+    import torch
+    from repro_torch.kernels import native
+    out = []
+    for (stem, shapes, dtype), args in captured.items():
+        mod = importlib.import_module(f"repro_torch.kernels.{stem}")
+        kern = getattr(mod, f"{stem}_kernel")
+        plain = getattr(mod, f"{stem}_plain")
+        isz = args[0].element_size()
+        lib, note = None, "no single PyTorch call computes it"
+        if stem == "grouped_matmul":
+            x, w = args
+            E, C, D = x.shape
+            F = w.shape[2]
+            nbytes = (E * C * D + E * D * F + E * C * F) * isz
+            ops = 2 * E * C * D * F
+
+            def lib(x=x, w=w):
+                return torch.bmm(x, w)
+            note = "torch.bmm"
+        elif stem == "local_attn":
+            q, k, v, window = args
+            BH, T, D = q.shape
+            nbytes = 4 * BH * T * D * isz
+            ops = 4 * D * BH * band_keys(T, window)   # QK and PV
+            lib, note = sdpa_band(q, k, v, window)
+        elif stem == "wkv6":
+            r = args[0]
+            BH, T, K = r.shape
+            nbytes = (5 * BH * T * K + BH * K) * isz
+            # k v^T, diag(u) k v^T, the sum, r @ (.) and the decayed state;
+            # exp(-exp(w)) per channel
+            ops = BH * T * (7 * K * K + 2 * K)
+        else:
+            B, T, D = args[0].shape
+            nbytes = 3 * B * T * D * isz
+            ops = 8 * B * T * D
+        log(f"library {stem} {shapes}: {note}")
+        label = " ".join(map(str, shapes)) + f" {str(dtype)[6:]}"
+        out.append((stem, native.KERNELS[stem].name, label, "ops",
+                    lambda kern=kern, a=args: kern(*a),
+                    lambda plain=plain, a=args: plain(*a),
+                    lib, nbytes, ops))
+    return out
+
+
 def stage_nbytes(stage, nrows: int, itemsize: int) -> int:
     return sum((nrows if op.fiber else 1) * op.flat_dim * itemsize
                for op in stage.operands)
@@ -288,9 +429,18 @@ def table_nbytes(tables) -> int:
                                        tables.b_idx))
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
+def peak(stem: str, dtype) -> tuple[float, str]:
+    """The operation rate that bounds kernel ``stem`` in ``dtype``."""
+    import torch
+    if dtype == torch.bfloat16 and stem in MATMUL_STEMS:
+        return BF16_TENSOR_OPS_PER_S, "989 TFLOP/s bf16 tensor cores"
+    return FP32_OPS_PER_S, "67 TFLOP/s float32"
+
+
+def bound(nbytes: float, ops: float,
+          ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -468,25 +618,29 @@ def paper_entries(captured: dict) -> list[tuple]:
     return out
 
 
-def measure(entries: list[tuple], spec_name: str) -> list[dict]:
+def measure(entries: list[tuple], spec_name: str,
+            primary: bool = True) -> list[dict]:
     """Each entry: kernel vs plain on the same inputs, then kernel /
-    plain / library times and the bound."""
+    plain / library times and the bound.  ``primary`` marks records in
+    the configuration's own dtype (the summary prefers them)."""
     import torch
     out = []
     for stem, name, stage, where, kern, plain, lib, nbytes, ops in entries:
         got, want = kern(), plain()
         torch.cuda.synchronize()
         err = check(f"{name} {stage} ({spec_name}, {where})", got, want)
+        ops_per_s, peak_name = peak(stem, got.dtype)
         del got, want
         ms = time_ms(kern)
         plain_ms = time_ms(plain)
         lib_ms = time_ms(lib) if lib is not None else None
-        bound_ms, bound_by = bound(nbytes, ops)
+        bound_ms, bound_by = bound(nbytes, ops, ops_per_s)
         rec = {"stem": stem, "name": name, "stage": stage,
                "spec": spec_name, "where": where,
                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
-               "library_ms": lib_ms, "bytes": nbytes, "ops": ops}
+               "peak": peak_name, "library_ms": lib_ms, "bytes": nbytes,
+               "ops": ops, "primary": primary}
         log("KERNEL_PHASE " + json.dumps(rec))
         out.append(rec)
     return out
@@ -501,13 +655,15 @@ class Driver:
         self.launches = {stem: 0 for stem in native.KERNELS}
         self.records: list[dict] = []
         self.seen: set = set()         # combine shapes measured already
+        self.trace_pad_s = 0.25        # idle host time around a trace
 
-    def drive(self, label: str, run, expect=(), measure_as=None):
+    def drive(self, label: str, run, expect=(), measure_as=None,
+              primary: bool = True):
         """Run ``run`` as a user would (peak memory, time, trace), then
         once counted with every kernel's inputs recorded.  Fails unless
         each stem in ``expect`` launched in the counted run.  Returns
         the counted run's result (a tuple in ``expect`` needs any one of
-        its stems)."""
+        its stems).  ``primary`` as in :func:`measure`."""
         import torch
 
         from repro_torch.kernels import native
@@ -516,19 +672,22 @@ class Driver:
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() / 2**30
         ms = time_ms(run)
-        profile_path(label, run, ms)
+        self.trace_pad_s = profile_path(label, run, ms, self.trace_pad_s)
         captured: dict = {}
         combines: dict = {}
         papers: dict = {}
+        lms: dict = {}
         restore = recording_lowerings(captured)
         restore_combines = recording_combines(combines)
         restore_paper = recording_paper(papers)
+        restore_lm = recording_lm(lms)
         native.reset_launch_counts()
         got = run()
         torch.cuda.synchronize()
         counts = native.launch_counts()
         restore()
         restore_paper()
+        restore_lm()
         recorded = restore_combines()
         if recorded != counts["combine"]:
             raise AssertionError(
@@ -549,8 +708,9 @@ class Driver:
         name = measure_as or label
         self.records += measure(stage_entries(captured)
                                 + combine_entries(fresh, label)
-                                + paper_entries(papers), name)
-        del captured, combines, fresh, papers
+                                + paper_entries(papers)
+                                + lm_entries(lms), name, primary)
+        del captured, combines, fresh, papers, lms
         return got
 
 
@@ -612,9 +772,11 @@ def main(argv=None) -> int:
 
     import numpy as np
     import torch
+    import torch.nn.functional as F
     sys.path.insert(0, os.path.join(REPO, "src"))
     try:
         from repro_torch.autotune import TunerConfig, generate_candidates
+        from repro_torch.configs import SHAPES, get_config
         from repro_torch.core import spec as S
         from repro_torch.core.executor import (CSFArrays, execute_plan,
                                                factors_to_torch,
@@ -893,23 +1055,112 @@ def main(argv=None) -> int:
     del got
     phase_done("6 paper kernels")
 
+    # -- 7. the LM kernels through kernels/ops.py ---------------------- #
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+
+    def randn(shape, dtype, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale
+                + shift).to(dtype)
+
+    def rand(shape, dtype, lo, hi):
+        return (torch.rand(shape, generator=gen, device=dev) * (hi - lo)
+                + lo).to(dtype)
+
+    def lm_path(label, run, stem, measure_as, primary=True):
+        got = drv.drive(label, run, expect=(stem,), measure_as=measure_as,
+                        primary=primary)
+        check(f"path {label} vs use_kernel=False", got,
+              run(use_kernel=False))
+        del got
+        torch.cuda.empty_cache()
+
+    # K8: granite-moe-1b-a400m's expert SwiGLU (src/repro/models/moe.py:
+    # 91-95), MOE_TOKENS tokens at the dropless serving capacity C = N
+    # (moe.py:114)
+    moe = get_config("granite-moe-1b-a400m")
+    E, D, Fe = moe.moe.n_experts, moe.d_model, moe.moe.d_expert
+    C = max(8, -(-MOE_TOKENS // 8) * 8)
+    for dtype, primary in ((moe.compute_dtype, True),
+                           (torch.float32, False)):
+        xe = randn((E, C, D), dtype)
+        wg, wu = (randn((E, D, Fe), dtype, D ** -0.5) for _ in range(2))
+        wd = randn((E, Fe, D), dtype, Fe ** -0.5)
+
+        def ffn(use_kernel=True, xe=xe, wg=wg, wu=wu, wd=wd):
+            h = F.silu(ops.grouped_matmul(xe, wg, use_kernel)) \
+                * ops.grouped_matmul(xe, wu, use_kernel)
+            return ops.grouped_matmul(h, wd, use_kernel)
+
+        lm_path(f"{moe.name} expert FFN {str(dtype)[6:]}", ffn,
+                "grouped_matmul", moe.name, primary)
+        del xe, wg, wu, wd, ffn
+    # K9: local attention at prefill_32k's length, batch cut to 1; the
+    # kv heads expanded to the query heads inside the timed path
+    T9 = SHAPES["prefill_32k"].seq_len
+    for arch in ("recurrentgemma-9b", "gemma3-1b"):
+        cfg = get_config(arch)
+        q = randn((1, T9, cfg.n_heads, cfg.hd), cfg.compute_dtype)
+        k, v = (randn((1, T9, cfg.n_kv_heads, cfg.hd), cfg.compute_dtype)
+                for _ in range(2))
+
+        def attn(use_kernel=True, q=q, k=k, v=v, H=cfg.n_heads,
+                 window=cfg.window):
+            return ops.local_attn(q, k.expand(-1, -1, H, -1),
+                                  v.expand(-1, -1, H, -1), window,
+                                  use_kernel)
+
+        lm_path(f"{arch} local attention", attn, "local_attn", arch)
+        del q, k, v, attn
+    # K10: rwkv6-3b's WKV6 at train_4k's length, batch cut to 8
+    rwkv = get_config("rwkv6-3b")
+    B10, T10, H10, K10 = 8, SHAPES["train_4k"].seq_len, rwkv.n_heads, rwkv.hd
+    for dtype, primary in ((rwkv.compute_dtype, True),
+                           (torch.float32, False)):
+        r, k, v = (randn((B10, T10, H10, K10), dtype, 0.5) for _ in range(3))
+        w = randn((B10, T10, H10, K10), dtype, 0.5, -1.0)
+        u = randn((H10, K10), dtype, 0.5)
+
+        def wkv(use_kernel=True, r=r, k=k, v=v, w=w, u=u):
+            return ops.wkv6(r, k, v, w, u, use_kernel=use_kernel)
+
+        lm_path(f"rwkv6-3b wkv6 {str(dtype)[6:]}", wkv, "wkv6", rwkv.name,
+                primary)
+        del r, k, v, w, u, wkv
+    # K11: recurrentgemma-9b's RG-LRU (width d_model) at train_4k's
+    # length, batch cut to 8
+    rg = get_config("recurrentgemma-9b")
+    shape11 = (8, SHAPES["train_4k"].seq_len, rg.d_model)
+    for dtype, primary in ((rg.compute_dtype, True),
+                           (torch.float32, False)):
+        x11, a11 = randn(shape11, dtype), rand(shape11, dtype, 0.05, 0.98)
+
+        def lru(use_kernel=True, x=x11, a=a11):
+            return ops.rglru(x, a, use_kernel=use_kernel)
+
+        lm_path(f"recurrentgemma-9b rglru {str(dtype)[6:]}", lru, "rglru",
+                rg.name, primary)
+        del x11, a11, lru
+    phase_done("7 LM kernels")
+
     missing = [s for s, n in drv.launches.items() if n == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
 
     # -- summary ------------------------------------------------------- #
-    summary = []                       # each kernel at its largest input
+    # each kernel at its largest input in its configuration's own dtype
+    summary = []
     for stem, info in native.KERNELS.items():
         rec = max((r for r in drv.records if r["stem"] == stem),
-                  key=lambda r: r["bytes"])
+                  key=lambda r: (r["primary"], r["bytes"]))
         summary.append({
             "name": info.name, "route": "cuda", "source": info.source,
             "replaces": info.replaces, "launches": drv.launches[stem],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-            "shape": f"{rec['stage']} ({rec['spec']})"})
+            "peak": rec["peak"], "shape": f"{rec['stage']} ({rec['spec']})"})
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -37,16 +37,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 @dataclasses.dataclass
 class KernelInfo:
-    """One CUDA kernel of the port and the TPU kernel it replaces."""
+    """One CUDA kernel of the port, the TPU kernel it replaces, and the
+    precisions it has entry points for."""
 
     name: str
     source: str          # repo-relative path of the CUDA source
     replaces: str        # file:line of the Pallas kernel it replaces
+    dtypes: tuple[torch.dtype, ...] = (torch.float32, torch.float64)
     launches: int = 0
 
 
 _SOURCE = "src/repro_torch/csrc/stage_kernels.cu"
 _PAPER = "src/repro_torch/csrc/paper_kernels.cu"
+_LM = "src/repro_torch/csrc/lm_kernels.cu"
+_LM_DTYPES = (torch.float32, torch.bfloat16)
 
 #: Every kernel this package launches, by C entry-point stem.
 KERNELS: dict[str, KernelInfo] = {
@@ -71,13 +75,24 @@ KERNELS: dict[str, KernelInfo] = {
         "K6 ttmc", _PAPER, "src/repro/kernels/ttmc.py:33"),
     "tttp": KernelInfo(
         "K7 tttp", _PAPER, "src/repro/kernels/tttp.py:24"),
+    "grouped_matmul": KernelInfo(
+        "K8 grouped_matmul", _LM,
+        "src/repro/kernels/grouped_matmul.py:39", _LM_DTYPES),
+    "local_attn": KernelInfo(
+        "K9 local_attn", _LM, "src/repro/kernels/local_attn.py:66",
+        _LM_DTYPES),
+    "wkv6": KernelInfo(
+        "K10 wkv6", _LM, "src/repro/kernels/wkv6.py:44", _LM_DTYPES),
+    "rglru": KernelInfo(
+        "K11 rglru", _LM, "src/repro/kernels/rglru.py:38", _LM_DTYPES),
 }
 
 #: Shared memory one thread block may use on the H100 (227 KB, above
 #: 48 KB only after ``cudaFuncSetAttribute``, which the entry points do).
 MAX_SHARED_BYTES = 232448
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
 
 # C signatures of the entry points in csrc/*.cu (every pointer and the
 # stream as c_void_p, or ctypes would cut them)
@@ -91,9 +106,14 @@ _SIGNATURES = {
     "mttkrp": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _P, _P],
     "ttmc": [_P, _P, _P, _L, _I, _I, _I, _I, _P, _P],
     "tttp": [_P, _P, _P, _P, _L, _I, _I, _P, _P],
+    "grouped_matmul": [_P, _P, _L, _I, _I, _I, _P, _P],
+    "local_attn": [_P, _P, _P, _L, _I, _I, _I, _F, _P, _P],
+    "wkv6": [_P, _P, _P, _P, _P, _L, _I, _I, _P, _P],
+    "rglru": [_P, _P, _L, _I, _I, _P, _P],
 }
 
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64",
+           torch.bfloat16: "bf16"}
 
 
 def reset_launch_counts() -> None:
@@ -162,8 +182,8 @@ def load_library() -> ctypes.CDLL:
     path, _, _ = build()
     lib = ctypes.CDLL(str(path))
     for stem, argtypes in _SIGNATURES.items():
-        for suffix in _SUFFIX.values():
-            fn = getattr(lib, f"spttn_{stem}_{suffix}")
+        for dtype in KERNELS[stem].dtypes:
+            fn = getattr(lib, f"spttn_{stem}_{_SUFFIX[dtype]}")
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
     return lib
@@ -184,14 +204,23 @@ def check_cuda_tensors(*tensors: torch.Tensor, dtype=None) -> None:
             raise ValueError(f"expected {dtype}, got {t.dtype}")
 
 
+def check_dtype(stem: str, dtype: torch.dtype) -> None:
+    """Raise ``TypeError`` unless kernel ``stem`` has an entry point in
+    precision ``dtype`` (no kernel falls back to another precision)."""
+    have = KERNELS[stem].dtypes
+    if dtype not in have:
+        names = " or ".join(str(d).removeprefix("torch.") for d in have)
+        raise TypeError(f"the CUDA kernel {stem!r} takes {names}, "
+                        f"got {dtype}")
+
+
 def launch(stem: str, dtype: torch.dtype, device: torch.device,
            *args) -> None:
     """Launch kernel ``stem`` in precision ``dtype`` on ``device``'s
     current stream.  ``args`` are the C arguments before the stream
-    (tensors are passed by their data pointers)."""
-    if dtype not in _SUFFIX:
-        raise TypeError(f"the CUDA kernels take float32 or float64, "
-                        f"got {dtype}")
+    (tensors are passed by their data pointers).  A precision the
+    kernel has no entry point for raises ``TypeError``."""
+    check_dtype(stem, dtype)
     fn = getattr(load_library(), f"spttn_{stem}_{_SUFFIX[dtype]}")
     c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a
               for a in args]
@@ -213,7 +242,8 @@ def column_threads(width: int) -> int:
     return tx
 
 
-def check_grid(x: int, y: int) -> None:
-    """CUDA caps grid.x at 2**31 - 1 and grid.y at 65535."""
-    if x >= 2**31 or y > 65535:
-        raise ValueError(f"launch grid ({x}, {y}) exceeds the CUDA limits")
+def check_grid(x: int, y: int, z: int = 1) -> None:
+    """CUDA caps grid.x at 2**31 - 1 and grid.y and grid.z at 65535."""
+    if x >= 2**31 or y > 65535 or z > 65535:
+        raise ValueError(f"launch grid ({x}, {y}, {z}) exceeds the CUDA "
+                         f"limits")

@@ -1,4 +1,5 @@
-"""Drivers for the paper kernels K5-K7, with their static layouts.
+"""Drivers for the paper kernels K5-K7, with their static layouts, and
+for the LM kernels K8-K11.
 
 The counterpart of the JAX package's ``src/repro/kernels/ops.py``: the
 layouts are computed once per sparsity pattern from the host CSF, the
@@ -10,16 +11,23 @@ tensors, the plain version on CPU tensors.  The device is the factors'.
 :mod:`repro_torch.kernels.ref` on the unpadded rows instead (the JAX
 package's ``use_pallas=False``).
 
-The LM passthroughs of the JAX module (``grouped_matmul``, ``wkv6``,
-``rglru``, ``local_attn``) belong to the model stack, which is not
-ported yet: they raise ``NotImplementedError``.
+The LM drivers mirror the JAX module's passthroughs
+(``src/repro/kernels/ops.py:128-167``): ``(B, T, H, K)`` operands fold
+to ``(B*H, T, K)`` for the kernel and back, ``u`` is broadcast per
+batch, and ``use_kernel=False`` computes the oracle on the unfolded
+operands.  Tile and chunk sizes are the kernels' own, so these drivers
+take none.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.kernels import grouped_matmul as gmm_k
+from repro_torch.kernels import local_attn as attn_k
 from repro_torch.kernels import paper, ref
+from repro_torch.kernels import rglru as rglru_k
+from repro_torch.kernels import wkv6 as wkv6_k
 from repro_torch.kernels.segment import segment_ptr
 from repro_torch.kernels.util import PaddedSegments, padded_segment_layout
 from repro_torch.sparse.csf import CSFTensor, level_segments
@@ -105,18 +113,60 @@ def tttp(csf: CSFTensor, u: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
 
 
 # --------------------------------------------------------------------------- #
-# passthroughs of the model stack (not ported)
+# the LM kernels
 # --------------------------------------------------------------------------- #
-def _model_stack(name: str):
-    def unported(*args, **kwargs):
-        raise NotImplementedError(
-            f"ops.{name} belongs to the LM model stack (kernels K8-K11), "
-            "which is not ported yet (ROADMAP queue 1, item 9)")
-    unported.__name__ = name
-    return unported
+def _fold(t: torch.Tensor) -> torch.Tensor:
+    """(B, T, H, K) -> (B*H, T, K), contiguous."""
+    B, T, H, K = t.shape
+    return t.transpose(1, 2).reshape(B * H, T, K).contiguous()
 
 
-grouped_matmul = _model_stack("grouped_matmul")
-wkv6 = _model_stack("wkv6")
-rglru = _model_stack("rglru")
-local_attn = _model_stack("local_attn")
+def _unfold(t: torch.Tensor, B: int, H: int) -> torch.Tensor:
+    """(B*H, T, K) -> (B, T, H, K)."""
+    _, T, K = t.shape
+    return t.reshape(B, H, T, K).transpose(1, 2)
+
+
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor,
+                   use_kernel: bool = True) -> torch.Tensor:
+    """x ``(E, C, D)`` @ w ``(E, D, F)`` -> ``(E, C, F)`` in x's dtype (K8)."""
+    if not use_kernel:
+        return ref.grouped_matmul_ref(x, w)
+    return gmm_k.grouped_matmul_kernel(x.contiguous(), w.contiguous())
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         w: torch.Tensor, u: torch.Tensor,
+         use_kernel: bool = True) -> torch.Tensor:
+    """RWKV6 WKV, r/k/v/w ``(B, T, H, K)``, u ``(H, K)`` -> ``(B, T, H, K)``
+    (K10)."""
+    if not use_kernel:
+        return ref.wkv6_ref(r, k, v, w, u)
+    B, T, H, K = r.shape
+    uu = u.expand(B, H, K).reshape(B * H, K).contiguous()
+    out = wkv6_k.wkv6_kernel(*map(_fold, (r, k, v, w)), uu)
+    return _unfold(out, B, H)
+
+
+def rglru(x: torch.Tensor, a: torch.Tensor,
+          use_kernel: bool = True) -> torch.Tensor:
+    """RG-LRU, x/a ``(B, T, D)`` -> h ``(B, T, D)`` (K11)."""
+    if not use_kernel:
+        return ref.rglru_ref(x, a)
+    return rglru_k.rglru_kernel(x.contiguous(), a.contiguous())
+
+
+def local_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               window: int, use_kernel: bool = True) -> torch.Tensor:
+    """Causal sliding-window attention, q/k/v ``(B, T, H, D)`` -> ``(B, T,
+    H, D)`` (K9).  k and v carry the query's heads: a caller with fewer
+    kv heads (MQA/GQA) expands them first, as the JAX module requires."""
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"local_attn: q, k, v of one shape (expand k/v to "
+                         f"the query heads first), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if not use_kernel:
+        return ref.local_attn_ref(q, k, v, window)
+    B, T, H, D = q.shape
+    out = attn_k.local_attn_kernel(_fold(q), _fold(k), _fold(v), window)
+    return _unfold(out, B, H)

@@ -1,11 +1,20 @@
-"""Plain PyTorch oracles of the paper kernels (the JAX package's
-``src/repro/kernels/ref.py:10-29``): the semantics K5-K7 must match up to
+"""Plain PyTorch oracles of the kernels (the JAX package's
+``src/repro/kernels/ref.py``): the semantics K5-K11 must match up to
 float tolerance, and the plain versions their wrappers run on CPU
 tensors.  Segment sums add in ascending row order
-(:func:`~repro_torch.kernels.segment.segment_combine_plain`)."""
+(:func:`~repro_torch.kernels.segment.segment_combine_plain`).
+
+The LM oracles (K8-K11) keep the kernels' precisions: float32 sums and
+states, outputs in the input dtype.  ``wkv6_ref`` and ``rglru_ref`` step
+through time as the kernels do (the reference's RG-LRU oracle is an
+associative scan), and ``local_attn_ref`` visits each query tile's band
+of key tiles only (:func:`local_attn_tiles`): the dense ``(B, H, T, T)``
+logits of the reference's oracle would be 68 GB at recurrentgemma-9b's
+32k prefill."""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.segment import segment_combine_plain
 
@@ -38,3 +47,109 @@ def tttp_ref(vals: torch.Tensor, ug: torch.Tensor, vg: torch.Tensor,
              wg: torch.Tensor) -> torch.Tensor:
     """out[n] = vals[n] * sum_r ug[n,r] vg[n,r] wg[n,r]."""
     return vals * torch.sum(ug * vg * wg, dim=-1)
+
+
+# --------------------------------------------------------------------------- #
+# LM kernels
+# --------------------------------------------------------------------------- #
+NEG_INF = -1e30            # the masked logit (as the Pallas kernel's)
+
+
+def grouped_matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(E, C, D) x (E, D, F) -> (E, C, F) batched expert GEMM, summed in
+    float32 and cast to ``x.dtype``."""
+    return torch.matmul(x.float(), w.float()).to(x.dtype)
+
+
+def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """RWKV6 WKV: per head, o_t = r_t (S + diag(u) k_t v_t^T), then
+    S <- diag(exp(-exp(w_t))) S + k_t v_t^T, from S = 0.
+
+    Time is axis 1: r/k/v/w ``(B, T, H, K)`` with u ``(H, K)``, or folded
+    ``(BH, T, K)`` with u ``(BH, K)``.  The state is float32; the output
+    has r's shape and dtype."""
+    dtype, T = r.dtype, r.shape[1]
+    r, k, v, w, u = (t.float() for t in (r, k, v, w, u))
+    decay = torch.exp(-torch.exp(w))
+    state = r.new_zeros(r.shape[:1] + r.shape[2:] + r.shape[-1:])
+    out = torch.empty_like(r)
+    for t in range(T):
+        kv = k[:, t, ..., :, None] * v[:, t, ..., None, :]
+        out[:, t] = (r[:, t, ..., None, :]
+                     @ (state + u[..., :, None] * kv))[..., 0, :]
+        state = decay[:, t, ..., :, None] * state + kv
+    return out.to(dtype)
+
+
+def rglru_ref(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """RG-LRU: h_t = a_t h_{t-1} + sqrt(clip(1 - a_t^2, 0, 1)) x_t from
+    h = 0, x/a ``(B, T, D)``; float32 state, output in x's dtype."""
+    xf, af = x.float(), a.float()
+    gated = torch.sqrt(torch.clamp(1.0 - af * af, 0.0, 1.0)) * xf
+    out = torch.empty_like(xf)
+    h = xf.new_zeros(x.shape[:1] + x.shape[2:])
+    for t in range(x.shape[1]):
+        h = af[:, t] * h + gated[:, t]
+        out[:, t] = h
+    return out.to(x.dtype)
+
+
+def local_attn_tiles(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     window: int, scale: float | None = None,
+                     bq: int = 64, bk: int = 64) -> torch.Tensor:
+    """Causal sliding-window attention on ``(N, T, D)``, tile by tile.
+
+    Query tile ``[q0, q1)`` visits, in ascending order, the key tiles of
+    ``bk`` rows from the one holding ``max(0, q0 - window + 1)`` to the one
+    holding ``q1 - 1`` (every tile the band touches, for any ``bq``,
+    ``bk`` and ``T``), with the exact mask ``kpos <= qpos`` and
+    ``kpos > qpos - window`` and an online softmax in float32.  The
+    rounding points are the Pallas kernel's: ``q * scale`` in the input
+    dtype, float32 logits, ``p`` cast to ``v.dtype`` before ``p @ v``.
+    All query tiles step through their key tiles together."""
+    if window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    N, T, D = q.shape
+    scale = D ** -0.5 if scale is None else scale
+    nqb, nkb = -(-T // bq), -(-T // bk)
+    dev = q.device
+    qs = (q.float() * scale).to(q.dtype).float()
+    qs = F.pad(qs, (0, 0, 0, nqb * bq - T)).view(N, nqb, bq, D)
+    kf = F.pad(k.float(), (0, 0, 0, nkb * bk - T)).view(N, nkb, bk, D)
+    vf = F.pad(v.float(), (0, 0, 0, nkb * bk - T)).view(N, nkb, bk, D)
+    q0 = torch.arange(nqb, device=dev) * bq
+    kb0 = torch.clamp(q0 - window + 1, min=0) // bk
+    kb1 = (torch.clamp(q0 + bq, max=T) - 1) // bk
+    qpos = (q0[:, None] + torch.arange(bq, device=dev))[:, :, None]
+    m = qs.new_full((N, nqb, bq, 1), NEG_INF)
+    l = qs.new_zeros((N, nqb, bq, 1))
+    acc = qs.new_zeros((N, nqb, bq, D))
+    for step in range(int((kb1 - kb0).max()) + 1):
+        kb = kb0 + step
+        tile = torch.clamp(kb, max=nkb - 1)
+        kpos = (kb[:, None] * bk + torch.arange(bk, device=dev))[:, None, :]
+        mask = ((kb <= kb1)[:, None, None] & (kpos <= qpos)
+                & (kpos > qpos - window))
+        s = torch.where(mask, qs @ kf[:, tile].transpose(-1, -2), NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.where(mask, torch.exp(s - m_new), 0.0)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        acc = alpha * acc + p.to(v.dtype).float() @ vf[:, tile]
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)
+    return out.reshape(N, nqb * bq, D)[:, :T].to(q.dtype)
+
+
+def local_attn_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   window: int, scale: float | None = None) -> torch.Tensor:
+    """Causal sliding-window attention, q/k/v ``(B, T, H, D)`` (equal
+    heads): :func:`local_attn_tiles` per (batch, head)."""
+    B, T, H, D = q.shape
+
+    def fold(t):
+        return t.transpose(1, 2).reshape(B * H, T, D)
+
+    out = local_attn_tiles(fold(q), fold(k), fold(v), window, scale)
+    return out.reshape(B, H, T, D).transpose(1, 2)

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: each against its plain version
 (K1, K2, K4 and the combine; K3, the fused chain, on 2- and 3-level
-chains; K5-K7, the paper kernels).
+chains; K5-K7, the paper kernels; K8-K11, the LM kernels, in float32
+and bfloat16 at sizes no tile or chunk divides).
 
 These tests need an NVIDIA GPU and ``nvcc`` (the kernels are built from
 ``src/repro_torch/csrc`` at first use), so they carry the ``cuda``
@@ -10,7 +11,11 @@ so they run where only PyTorch is installed::
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
 Tolerances: float32 ``1e-5 * max(1, max|plain|)`` (the kernel sums in
-another order than ``torch.einsum``); float64 ``1e-12`` relative.
+another order than ``torch.einsum``); float64 ``1e-12`` relative;
+bfloat16 ``1e-2`` relative (the kernel and its plain version round at
+the same points, but a float32 sum in another order can land a value on
+the other side of a bf16 rounding boundary: one bf16 ulp is 2**-8 of
+the value).
 """
 import numpy as np
 import pytest
@@ -21,7 +26,8 @@ from repro_torch.core import spec as S  # noqa: E402
 from repro_torch.core.executor import (CSFArrays,  # noqa: E402
                                        execute_plan, reference_execute)
 from repro_torch.core.planner import plan  # noqa: E402
-from repro_torch.kernels import native, ops, paper  # noqa: E402
+from repro_torch.kernels import (grouped_matmul, local_attn,  # noqa: E402
+                                 native, ops, paper, rglru, wkv6)
 from repro_torch.kernels.codegen.ir import ChainLayout  # noqa: E402
 from repro_torch.kernels.codegen import ir  # noqa: E402
 from repro_torch.kernels.codegen import lower_gpu, stages  # noqa: E402
@@ -58,6 +64,8 @@ PRODUCTS = [
 ]
 DTYPES = [pytest.param(torch.float32, id="f32"),
           pytest.param(torch.float64, id="f64")]
+LM_DTYPES = [pytest.param(torch.float32, id="f32"),
+             pytest.param(torch.bfloat16, id="bf16")]
 
 
 @pytest.fixture
@@ -71,7 +79,7 @@ def _close(got, want, dtype):
     got, want = got.double().cpu(), want.double().cpu()
     assert got.shape == want.shape
     assert bool(torch.isfinite(got).all())
-    rel = 1e-5 if dtype == torch.float32 else 1e-12
+    rel = {torch.float32: 1e-5, torch.bfloat16: 1e-2}.get(dtype, 1e-12)
     scale = max(1.0, float(want.abs().max())) if want.numel() else 1.0
     err = float((got - want).abs().max()) if want.numel() else 0.0
     assert err <= rel * scale, (err, rel * scale)
@@ -119,8 +127,8 @@ def test_reduce_and_splitk_kernels_match_plain(cuda, ops, out_subs,
     comb = segment_combine(parts, ptr, nseg)
     torch.cuda.synchronize()
     assert native.launch_counts() == {
-        "reduce": 1, "product": 0, "splitk": 1, "combine": 1, "chain": 0,
-        "mttkrp": 0, "ttmc": 0, "tttp": 0}
+        **dict.fromkeys(native.KERNELS, 0), "reduce": 1, "splitk": 1,
+        "combine": 1}
     _close(out, stages.run_reduce_stage_plain(st, ptr, mask, padded, dtype),
            dtype)
     _close(parts, stages.block_partials_plain(st, mask, padded), dtype)
@@ -312,3 +320,113 @@ def test_paper_kernels_match_plain(cuda, dtype):
     _close(paper.ttmc_kernel(ug[gather], xf[gather], ptr, lay.nseg, 8),
            paper.ttmc_kernel_plain(ug[gather], xf[gather], ptr, lay.nseg,
                                    8), dtype)
+
+
+# --------------------------------------------------------------------- #
+# K8-K11, the LM kernels
+# --------------------------------------------------------------------- #
+def _randn(gen, shape, dtype, dev, scale=1.0, shift=0.0):
+    t = torch.randn(shape, generator=gen, device=dev) * scale + shift
+    return t.to(dtype)
+
+
+@pytest.mark.parametrize("E,C,D,F", [(3, 70, 33, 65), (1, 64, 64, 64),
+                                     (1, 5, 3, 7), (2, 130, 1000, 20)])
+@pytest.mark.parametrize("dtype", LM_DTYPES)
+def test_grouped_matmul_kernel_matches_plain(cuda, E, C, D, F, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = _randn(gen, (E, C, D), dtype, cuda)
+    w = _randn(gen, (E, D, F), dtype, cuda, D ** -0.5)
+    got = grouped_matmul.grouped_matmul_kernel(x, w)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    _close(got, grouped_matmul.grouped_matmul_plain(x, w), dtype)
+
+
+@pytest.mark.parametrize("BH,T,D,window", [
+    (2, 130, 64, 40),       # T no tile divides
+    (1, 100, 64, 1),        # the diagonal only
+    (2, 90, 64, 1000),      # window >= T: causal
+    (1, 200, 256, 70),      # recurrentgemma's / gemma3's head size
+    (3, 64, 40, 64),        # a head size no column tile divides
+])
+@pytest.mark.parametrize("dtype", LM_DTYPES)
+def test_local_attn_kernel_matches_plain(cuda, BH, T, D, window, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v = (_randn(gen, (BH, T, D), dtype, cuda) for _ in range(3))
+    got = local_attn.local_attn_kernel(q, k, v, window)
+    torch.cuda.synchronize()
+    _close(got, local_attn.local_attn_plain(q, k, v, window), dtype)
+
+
+def _wkv6_inputs(gen, BH, T, K, dtype, dev):
+    r, k, v = (_randn(gen, (BH, T, K), dtype, dev, 0.5) for _ in range(3))
+    w = _randn(gen, (BH, T, K), dtype, dev, 0.5, -1.0)
+    return r, k, v, w, _randn(gen, (BH, K), dtype, dev, 0.5)
+
+
+@pytest.mark.parametrize("BH,T,K", [(3, 1, 64), (2, 37, 64), (2, 70, 16),
+                                    (1, 33, 100)])
+@pytest.mark.parametrize("dtype", LM_DTYPES)
+def test_wkv6_kernel_matches_plain(cuda, BH, T, K, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    args = _wkv6_inputs(gen, BH, T, K, dtype, cuda)
+    got = wkv6.wkv6_kernel(*args)
+    torch.cuda.synchronize()
+    _close(got, wkv6.wkv6_plain(*args), dtype)
+
+
+@pytest.mark.parametrize("B,T,D", [(2, 1, 64), (3, 13, 300), (1, 70, 33)])
+@pytest.mark.parametrize("dtype", LM_DTYPES)
+def test_rglru_kernel_matches_plain(cuda, B, T, D, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = _randn(gen, (B, T, D), dtype, cuda)
+    a = (torch.rand((B, T, D), generator=gen, device=cuda) * 0.93
+         + 0.05).to(dtype)
+    got = rglru.rglru_kernel(x, a)
+    torch.cuda.synchronize()
+    _close(got, rglru.rglru_plain(x, a), dtype)
+
+
+@pytest.mark.parametrize("dtype", LM_DTYPES)
+def test_lm_drivers_launch_their_kernels(cuda, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    B, T, H, K = 2, 40, 3, 16
+    x = _randn(gen, (4, 20, 24), dtype, cuda)
+    w = _randn(gen, (4, 24, 12), dtype, cuda)
+    q, k, v = (_randn(gen, (B, T, H, K), dtype, cuda) for _ in range(3))
+    r, kk, vv, ww = (_randn(gen, (B, T, H, K), dtype, cuda, 0.5)
+                     for _ in range(4))
+    u = _randn(gen, (H, K), dtype, cuda, 0.5)
+    a = (torch.rand((B, T, K), generator=gen, device=cuda) * 0.9
+         + 0.05).to(dtype)
+    native.reset_launch_counts()
+    got = [ops.grouped_matmul(x, w), ops.local_attn(q, k, v, 9),
+           ops.wkv6(r, kk, vv, ww, u), ops.rglru(q[:, :, 0], a)]
+    want = [ops.grouped_matmul(x, w, use_kernel=False),
+            ops.local_attn(q, k, v, 9, use_kernel=False),
+            ops.wkv6(r, kk, vv, ww, u, use_kernel=False),
+            ops.rglru(q[:, :, 0], a, use_kernel=False)]
+    torch.cuda.synchronize()
+    for g, wnt in zip(got, want):
+        _close(g, wnt, dtype)
+    counts = native.launch_counts()
+    assert [counts[s] for s in ("grouped_matmul", "local_attn", "wkv6",
+                                "rglru")] == [1, 1, 1, 1]
+
+
+def test_lm_wrappers_reject_what_their_kernels_lack(cuda):
+    half = torch.zeros((2, 8, 16), dtype=torch.float16, device=cuda)
+    dbl = torch.zeros((2, 8, 16), dtype=torch.float64, device=cuda)
+    with pytest.raises(TypeError, match="'grouped_matmul' takes"):
+        grouped_matmul.grouped_matmul_kernel(half, half.transpose(1, 2)
+                                             .contiguous())
+    with pytest.raises(TypeError, match="'local_attn' takes"):
+        local_attn.local_attn_kernel(dbl, dbl, dbl, 4)
+    with pytest.raises(TypeError, match="'rglru' takes"):
+        rglru.rglru_kernel(half, half)
+    with pytest.raises(TypeError, match="'wkv6' takes"):
+        wkv6.wkv6_kernel(dbl, dbl, dbl, dbl, dbl[:, 0].contiguous())
+    big = torch.zeros((1, 8, 257), device=cuda)
+    with pytest.raises(ValueError, match="head size"):
+        local_attn.local_attn_kernel(big, big, big, 4)

@@ -6,8 +6,8 @@
 * on CPU tensors no kernel launches (every launch count stays 0), and a
   CUDA-less host never falls back to the CPU unless asked;
 * what the port has not ported yet (sliced execution under a memory
-  budget, the LM model stack's kernel passthroughs) raises
-  ``NotImplementedError`` instead of quietly running something else.
+  budget) raises ``NotImplementedError`` instead of quietly running
+  something else.
 """
 import ast
 import dataclasses
@@ -109,6 +109,11 @@ def test_cpu_tensors_launch_no_kernel():
     lay = ops.ttmc_fiber_layout(csf, block=8)
     ops.ttmc_fiber(torch.ones(csf.nfib[2], 2), torch.ones(csf.nfib[2], 3),
                    lay)
+    x = torch.ones((2, 5, 3, 4))
+    ops.grouped_matmul(x[0], x[1].transpose(1, 2))
+    ops.local_attn(x, x, x, 2)
+    ops.wkv6(x, x, x, x, x[0, 0])
+    ops.rglru(x[0], x[1] / 2)
     assert native.launch_counts() == {s: 0 for s in native.KERNELS}
 
 
@@ -141,9 +146,6 @@ def test_unported_parts_raise_not_implemented():
         plan(spec, autotune=True, csf=arrays, memory_budget=1 << 20)
     with pytest.raises(NotImplementedError, match="slicing"):
         tune(spec, csf=arrays, memory_budget=1 << 20)
-    for name in ("grouped_matmul", "wkv6", "rglru", "local_attn"):
-        with pytest.raises(NotImplementedError, match="model stack"):
-            getattr(ops, name)()
     # what this port once left out now runs: the fused chain on both
     # code-generator engines, and measured planning
     for backend in ("cuda", "cuda-splitk"):
@@ -171,7 +173,8 @@ def test_kernel_registry_names_real_sources_and_tpu_kernels():
     replaces (whose body reaches ``pl.pallas_call``)."""
     assert set(native.KERNELS) == {"reduce", "product", "splitk",
                                    "combine", "chain", "mttkrp", "ttmc",
-                                   "tttp"}
+                                   "tttp", "grouped_matmul", "local_attn",
+                                   "wkv6", "rglru"}
     for info in native.KERNELS.values():
         assert os.path.exists(os.path.join(REPO, info.source))
         path, line = info.replaces.split(":")

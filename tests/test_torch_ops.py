@@ -147,10 +147,3 @@ def test_paper_kernels_float64_match_reference():
     for g, wnt in zip(got, want):
         assert g.dtype == torch.float64
         _close(g, wnt, rel=1e-12)
-
-
-@pytest.mark.parametrize("name", ["grouped_matmul", "wkv6", "rglru",
-                                  "local_attn"])
-def test_model_stack_passthroughs_raise(name):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        getattr(ops, name)(None)
