@@ -10,7 +10,7 @@ softmax in float32 and the Pallas kernel's rounding points for bf16
 ``v.dtype`` before ``p @ v``).  The mask is exact for any ``T`` and any
 ``window >= 1``.  Unlike the Pallas kernel, whose kv-block index mixes
 query-tile and key-tile units when ``bq != bk``, the tile sizes are the
-kernel's own; the plain version takes any (:func:`local_attn_plain`).
+kernel's own and the wrapper takes none.
 Attention is bound by the tensor cores at these widths; this first
 version runs on the CUDA cores (PERF.md).
 
@@ -29,11 +29,10 @@ MAX_HEAD_DIM = 256
 
 
 def local_attn_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     window: int, scale: float | None = None,
-                     bq: int = TILE, bk: int = TILE) -> torch.Tensor:
-    """Plain version of K9: the same tile walk in PyTorch, all query
-    tiles at once (:func:`~repro_torch.kernels.ref.local_attn_tiles`)."""
-    return ref.local_attn_tiles(q, k, v, window, scale, bq, bk)
+                     window: int, scale: float | None = None) -> torch.Tensor:
+    """Plain version of K9: each chunk of queries against its dense
+    slice of keys (:func:`~repro_torch.kernels.ref.local_attn_band`)."""
+    return ref.local_attn_band(q, k, v, window, scale)
 
 
 def local_attn_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

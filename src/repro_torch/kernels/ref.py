@@ -7,10 +7,10 @@ tensors.  Segment sums add in ascending row order
 The LM oracles (K8-K11) keep the kernels' precisions: float32 sums and
 states, outputs in the input dtype.  ``wkv6_ref`` and ``rglru_ref`` step
 through time as the kernels do (the reference's RG-LRU oracle is an
-associative scan), and ``local_attn_ref`` visits each query tile's band
-of key tiles only (:func:`local_attn_tiles`): the dense ``(B, H, T, T)``
-logits of the reference's oracle would be 68 GB at recurrentgemma-9b's
-32k prefill."""
+associative scan), and ``local_attn_ref`` computes each chunk of queries
+against its window of keys only (:func:`local_attn_band`): the dense
+``(B, H, T, T)`` logits of the reference's oracle would be 68 GB at
+recurrentgemma-9b's 32k prefill."""
 from __future__ import annotations
 
 import torch
@@ -95,61 +95,45 @@ def rglru_ref(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     return out.to(x.dtype)
 
 
-def local_attn_tiles(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     window: int, scale: float | None = None,
-                     bq: int = 64, bk: int = 64) -> torch.Tensor:
-    """Causal sliding-window attention on ``(N, T, D)``, tile by tile.
+QUERY_CHUNK = 256         # query rows per step of :func:`local_attn_band`
 
-    Query tile ``[q0, q1)`` visits, in ascending order, the key tiles of
-    ``bk`` rows from the one holding ``max(0, q0 - window + 1)`` to the one
-    holding ``q1 - 1`` (every tile the band touches, for any ``bq``,
-    ``bk`` and ``T``), with the exact mask ``kpos <= qpos`` and
-    ``kpos > qpos - window`` and an online softmax in float32.  The
-    rounding points are the Pallas kernel's: ``q * scale`` in the input
-    dtype, float32 logits, ``p`` cast to ``v.dtype`` before ``p @ v``.
-    All query tiles step through their key tiles together."""
+
+def local_attn_band(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    window: int, scale: float | None = None) -> torch.Tensor:
+    """Causal sliding-window attention on ``(N, T, D)``: each chunk of
+    ``QUERY_CHUNK`` query rows ``[q0, q1)`` against its dense key slice
+    ``[max(0, q0 - window + 1), q1)`` with the exact mask ``kpos <= qpos``
+    and ``kpos > qpos - window``.  The rounding points are the Pallas
+    kernel's: ``q * scale`` in the input dtype, float32 logits, ``p``
+    cast to ``v.dtype`` before ``p @ v``, float32 normalisation."""
     if window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     N, T, D = q.shape
     scale = D ** -0.5 if scale is None else scale
-    nqb, nkb = -(-T // bq), -(-T // bk)
-    dev = q.device
     qs = (q.float() * scale).to(q.dtype).float()
-    qs = F.pad(qs, (0, 0, 0, nqb * bq - T)).view(N, nqb, bq, D)
-    kf = F.pad(k.float(), (0, 0, 0, nkb * bk - T)).view(N, nkb, bk, D)
-    vf = F.pad(v.float(), (0, 0, 0, nkb * bk - T)).view(N, nkb, bk, D)
-    q0 = torch.arange(nqb, device=dev) * bq
-    kb0 = torch.clamp(q0 - window + 1, min=0) // bk
-    kb1 = (torch.clamp(q0 + bq, max=T) - 1) // bk
-    qpos = (q0[:, None] + torch.arange(bq, device=dev))[:, :, None]
-    m = qs.new_full((N, nqb, bq, 1), NEG_INF)
-    l = qs.new_zeros((N, nqb, bq, 1))
-    acc = qs.new_zeros((N, nqb, bq, D))
-    for step in range(int((kb1 - kb0).max()) + 1):
-        kb = kb0 + step
-        tile = torch.clamp(kb, max=nkb - 1)
-        kpos = (kb[:, None] * bk + torch.arange(bk, device=dev))[:, None, :]
-        mask = ((kb <= kb1)[:, None, None] & (kpos <= qpos)
-                & (kpos > qpos - window))
-        s = torch.where(mask, qs @ kf[:, tile].transpose(-1, -2), NEG_INF)
-        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-        p = torch.where(mask, torch.exp(s - m_new), 0.0)
-        alpha = torch.exp(m - m_new)
-        l = alpha * l + p.sum(-1, keepdim=True)
-        acc = alpha * acc + p.to(v.dtype).float() @ vf[:, tile]
-        m = m_new
-    out = acc / torch.clamp(l, min=1e-30)
-    return out.reshape(N, nqb * bq, D)[:, :T].to(q.dtype)
+    out = torch.empty_like(q)
+    pos = torch.arange(T, device=q.device)
+    for q0 in range(0, T, QUERY_CHUNK):
+        q1 = min(q0 + QUERY_CHUNK, T)
+        k0 = max(0, q0 - window + 1)
+        qpos, kpos = pos[q0:q1, None], pos[None, k0:q1]
+        mask = (kpos <= qpos) & (kpos > qpos - window)
+        s = torch.where(mask, qs[:, q0:q1] @ k[:, k0:q1].float().mT,
+                        NEG_INF)
+        p = torch.where(mask, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+        acc = p.to(v.dtype).float() @ v[:, k0:q1].float()
+        out[:, q0:q1] = (acc / p.sum(-1, keepdim=True)).to(q.dtype)
+    return out
 
 
 def local_attn_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    window: int, scale: float | None = None) -> torch.Tensor:
     """Causal sliding-window attention, q/k/v ``(B, T, H, D)`` (equal
-    heads): :func:`local_attn_tiles` per (batch, head)."""
+    heads): :func:`local_attn_band` per (batch, head)."""
     B, T, H, D = q.shape
 
     def fold(t):
         return t.transpose(1, 2).reshape(B * H, T, D)
 
-    out = local_attn_tiles(fold(q), fold(k), fold(v), window, scale)
+    out = local_attn_band(fold(q), fold(k), fold(v), window, scale)
     return out.reshape(B, H, T, D).transpose(1, 2)
