@@ -9,7 +9,8 @@ Phases (each ends in ``torch.cuda.synchronize()``, prints its seconds;
 any failure exits non-zero):
 
 1. Build the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
-   source, all started together; sm_90a).
+   source, all started together; sm_90a); a ``PTXAS`` line per kernel
+   gives its registers, spills and static shared memory.
 2. A small tensor (60 x 50 x 40, density 0.01) through every engine and
    strategy (the fused chain included), against the port's numpy
    Algorithm-2 ``reference_execute``.
@@ -59,6 +60,11 @@ summation order; for bf16 results, where a float32 sum in another order
 can move a value across a bf16 rounding boundary, element by element the
 smaller of ``1e-2 * max(1, max|plain|)`` and ``2**-7 * |plain| + 2**-4
 * rms(plain)``: :func:`max_err`), kernel / plain / library-call times,
+for every kernel with a library call also its time and the library
+call's over ten calls back to back (``ms_back_to_back``,
+``library_ms_back_to_back``: the host's work to launch one call then
+overlaps the device's work on the one before), achieved rates (``achieved_tflop_s``, ``achieved_tb_s``; a
+``TENSOR_CORES`` line beside the bound for K8 in bf16, on wgmma),
 and the least time the card could take for the same work (bytes over
 3.35 TB/s, or operations over the peak for their type, whichever is
 larger: 989 TFLOP/s for bf16 matrix products on the tensor cores (K8,
@@ -109,8 +115,11 @@ def log(*args) -> None:
     print(*args, flush=True)
 
 
-def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median CUDA-event time of ``fn`` in ms."""
+def time_ms(fn, reps: int = 10, warmup: int = 2, calls: int = 1) -> float:
+    """Median CUDA-event time of ``fn`` in ms: of one call (the host's
+    work to launch it included), or with ``calls`` > 1 of that many calls
+    back to back, over their count (the host's work then overlaps the
+    device's)."""
     import torch
     for _ in range(warmup):
         fn()
@@ -120,10 +129,11 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
@@ -166,6 +176,34 @@ def check(name: str, got, want) -> float:
         raise AssertionError(f"{name}: an error is {ratio} times its "
                              f"tolerance (max_abs_err {err})")
     return err
+
+
+def ptxas_kernels(report: str) -> list[dict]:
+    """Registers, spills and static shared memory of every kernel in the
+    build's ``ptxas -v`` report, by the kernel's stem (its mangled name
+    holds ``<len><stem>_kernel``) and its mangled name."""
+    import re
+    recs, cur = [], None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            stem = next((st for st in TRACE_NAMES
+                         if f"{len(st) + 7}{st}_kernel" in name), None)
+            cur = {"stem": stem, "kernel": name}
+            recs.append(cur)
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                cur["spill_stores"], cur["spill_loads"] = map(int,
+                                                              m.groups())
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+                m = re.search(r"(\d+) bytes smem", line)
+                cur["static_smem"] = int(m.group(1)) if m else 0
+    return recs
 
 
 def profile_path(label: str, fn, event_ms: float, pad_s: float = 0.25,
@@ -654,8 +692,18 @@ def measure(entries: list[tuple], spec_name: str) -> list[dict]:
                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "peak": peak_name, "library_ms": lib_ms, "bytes": nbytes,
-               "ops": ops}
+               "ops": ops, "achieved_tflop_s": ops / ms / 1e9,
+               "achieved_tb_s": nbytes / ms / 1e9}
+        # beside a library call, both again over ten calls back to back
+        rec["ms_back_to_back"], rec["library_ms_back_to_back"] = (
+            (time_ms(kern, reps=3, warmup=1, calls=10),
+             time_ms(lib, reps=3, warmup=1, calls=10))
+            if lib is not None else (None, None))
         log("KERNEL_PHASE " + json.dumps(rec))
+        if stem == "grouped_matmul" and dtype == torch.bfloat16:
+            log(f"TENSOR_CORES {name} {stage}: {ops / ms / 1e9!r} TFLOP/s "
+                f"achieved in {ms!r} ms; the bound is {bound_ms!r} ms "
+                f"({ops_per_s / 1e12:g} TFLOP/s bf16, {bound_by})")
         out.append(rec)
     return out
 
@@ -822,9 +870,8 @@ def main(argv=None) -> int:
     path, secs, report = native.build()
     native.load_library()
     log(f"build: {secs:.1f} s -> {os.path.relpath(path, REPO)}")
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line:
-            log("  ptxas: " + line.strip())
+    for rec in ptxas_kernels(report):
+        log("PTXAS " + json.dumps(rec))
     phase_done("1 build")
 
     rng = np.random.default_rng(args.seed)

@@ -14,8 +14,12 @@ kernels on the H100 (CUDA sources in ``csrc/stage_kernels.cu``):
   segment owns at least one block (``padded_segment_layout``), so every
   row is written.
 * **K2, product** (:func:`run_product_stage`, replaces ``stages.py:155``
-  ``run_product_stage``): one thread per (fiber, output column), no
-  cross-block state.
+  ``run_product_stage``): a persistent grid walks tiles of consecutive
+  fiber rows; each tile of an operand is one contiguous chunk, copied
+  into shared memory with 16-byte ``cp.async`` and double-buffered, and
+  the output tile goes back as one chunk with 16-byte stores
+  (:func:`product_tiling` picks the rows a tile).  No cross-block
+  state.
 * **K3, fused chain** (:func:`run_fused_chain_stage`, replaces
   ``stages.py:198`` ``run_fused_chain_stage``).  The TPU kernel runs a
   whole chain of reducing terms in one sequential grid: one VMEM
@@ -32,8 +36,8 @@ kernels on the H100 (CUDA sources in ``csrc/stage_kernels.cu``):
   leaves a few of them walking most of the blocks.
 
 All three are bound by bytes: a stage does O(1) multiply-adds per
-element it reads.  Threads of one fiber row take neighbouring output columns, so
-row reads and output writes coalesce.  Hot spots left for a later PR: K1
+element it reads.  In K1 and K3, threads of one fiber row take
+neighbouring output columns, so row reads and output writes coalesce.  Hot spots left for a later PR: K1
 runs a heavy segment's blocks on one SM, and with few segments it does
 not fill the card.
 
@@ -43,6 +47,9 @@ or raises.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
+
 import numpy as np
 import torch
 
@@ -50,7 +57,9 @@ from repro_torch.kernels import native
 from repro_torch.kernels.codegen.ir import (ChainLayout, ChainLink,
                                             IndexTables, Lowering, Stage,
                                             StageIR, accumulator_type,
-                                            check_block_grid, load_operands,
+                                            check_block_grid,
+                                            index_table_arrays,
+                                            load_operands,
                                             register_lowering)
 from repro_torch.kernels.segment import segment_combine_plain
 
@@ -133,29 +142,129 @@ def run_product_stage_plain(stage: Stage, padded, dtype) -> torch.Tensor:
     return out.reshape(out.shape[0], -1).to(dtype)
 
 
+#: K2's shared-memory budget per thread block: four blocks on an SM.
+PRODUCT_SMEM = 48 * 1024
+#: K2 keeps its index tables in shared memory up to this size.
+PRODUCT_TABLE_SMEM = 16 * 1024
+#: K2's largest tile, in fiber rows.
+PRODUCT_MAX_ROWS = 256
+
+
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+@dataclasses.dataclass(frozen=True)
+class ProductTiling:
+    """How K2 walks a stage: ``rows`` fiber rows a tile (a multiple of 4,
+    so every tile starts 16-byte aligned), the tables in shared memory or
+    read from global memory, the terms read a 16-byte chunk at a time or
+    one by one (:func:`term_chunks`), the dynamic shared bytes of a
+    thread block, and each operand's chunk swizzle (see
+    ``csrc/stage_kernels.cu``)."""
+
+    rows: int
+    smem_tables: bool
+    chunks: bool
+    smem: int
+    swizzle: tuple[int, int]
+
+
+def chunk_swizzle(width: int, itemsize: int) -> int:
+    """The XOR mask K2 applies to 16-byte chunk positions within a staged
+    row of ``width`` elements: the largest power of two (at most 8)
+    dividing the row's chunks, less one; 0 when the row is no whole
+    number of chunks."""
+    nbytes = width * itemsize
+    if nbytes % 16:
+        return 0
+    chunks = nbytes // 16
+    return min(chunks & -chunks, 8) - 1
+
+
+def term_chunks(stage: Stage, itemsize: int) -> bool:
+    """Whether every output column's terms come in runs of one whole
+    16-byte chunk of both operands (``16 // itemsize`` consecutive
+    columns from a multiple of it, in table order) and every fiber row
+    is whole chunks: then K2 reads each run with one 16-byte load per
+    operand.  The row dot ``Zd,Zd->Z`` is such a stage."""
+    v = 16 // itemsize
+    out_ptr, a_idx, b_idx = index_table_arrays(stage)
+    if not a_idx.size or (np.diff(out_ptr) % v).any() or any(
+            op.fiber and op.flat_dim % v for op in stage.operands):
+        return False
+    step = np.arange(v)
+    return all(bool((runs[:, 0] % v == 0).all()
+                    and (runs == runs[:, :1] + step).all())
+               for runs in (a_idx.reshape(-1, v), b_idx.reshape(-1, v)))
+
+
+@functools.lru_cache(maxsize=256)
+def product_tiling(stage: Stage, itemsize: int) -> ProductTiling:
+    """Choose K2's tile for ``stage`` in a type of ``itemsize`` bytes: the
+    most rows (a multiple of 4, at most :data:`PRODUCT_MAX_ROWS`) whose
+    double-buffered operand tiles, output tile, broadcast rows and index
+    tables fit :data:`PRODUCT_SMEM`, or, when four rows do not, the whole
+    of a block's shared memory.  Raises when four rows exceed even
+    that."""
+    widths = [op.flat_dim for op in stage.operands]
+    fibers = [op.fiber for op in stage.operands]
+    out_w = stage.out_flat_dim
+    nterms = len(index_table_arrays(stage)[1])
+    table_bytes = _round16(4 * (out_w + 1 + 2 * nterms))
+    smem_tables = table_bytes <= PRODUCT_TABLE_SMEM
+    fixed = sum(_round16(w * itemsize) for w, f in zip(widths, fibers)
+                if not f) + (table_bytes if smem_tables else 0)
+    per_row = itemsize * (out_w + 2 * sum(w for w, f in zip(widths, fibers)
+                                          if f))
+    for budget in (PRODUCT_SMEM, native.MAX_SHARED_BYTES):
+        rows = min(PRODUCT_MAX_ROWS, (budget - fixed) // per_row // 4 * 4)
+        if rows >= 4:
+            break
+    else:
+        raise ValueError(f"product stage {stage.expr}: four fiber rows of "
+                         f"widths {tuple(widths)} -> {out_w} do not fit "
+                         f"the {native.MAX_SHARED_BYTES} bytes of shared "
+                         f"memory of a thread block")
+    swizzle = tuple(chunk_swizzle(w, itemsize) if f else 0
+                    for w, f in zip(widths, fibers))
+    return ProductTiling(rows, smem_tables, term_chunks(stage, itemsize),
+                         fixed + rows * per_row, swizzle)
+
+
 def run_product_stage(stage: Stage, tables: IndexTables, padded,
                       dtype) -> torch.Tensor:
     """K2: per-fiber ``einsum(stage.expr)`` over the fiber rows given ->
     ``(rows, out_flat)`` in ``dtype``.  Rows map 1:1, so the caller
-    passes exactly its fibers: no padding is needed on this target."""
+    passes exactly its fibers: no padding is needed on this target.
+    ``tables`` are ``index_tables(stage)`` (the tiling reads their host
+    copy).  Tiles are copied 16 bytes at a time when every fiber
+    operand's base is 16-byte aligned, one element at a time
+    otherwise."""
     nrows = next(p.shape[0] for p, op in zip(padded, stage.operands)
                  if op.fiber)
     if padded[0].device.type == "cpu":
         return run_product_stage_plain(stage, padded, dtype)
     acc_t = accumulator_type(dtype)
-    rows, strides = operand_rows(stage, padded, nrows, acc_t)
+    rows, _ = operand_rows(stage, padded, nrows, acc_t)
     native.check_cuda_tensors(*rows, tables.out_ptr)
     native.check_cuda_tensors(tables.out_ptr, tables.a_idx, tables.b_idx,
                               dtype=torch.int32)
     w = stage.out_flat_dim
+    tiling = product_tiling(stage, acc_t.itemsize)
+    vec = all(r.data_ptr() % 16 == 0
+              for r, op in zip(rows, stage.operands) if op.fiber)
     out = torch.empty((nrows, w), dtype=acc_t, device=rows[0].device)
-    tx = native.column_threads(w)
-    native.check_grid(-(-nrows // (256 // tx)), -(-w // tx))
     if nrows * w:
+        ops = stage.operands
         native.launch("product", acc_t, rows[0].device, rows[0],
-                      strides[0], rows[1], strides[1], nrows,
-                      tables.out_ptr, tables.a_idx, tables.b_idx, w, tx,
-                      out)
+                      int(ops[0].fiber), ops[0].flat_dim, tiling.swizzle[0],
+                      rows[1], int(ops[1].fiber), ops[1].flat_dim,
+                      tiling.swizzle[1], nrows, tiling.rows, tables.out_ptr,
+                      tables.a_idx, tables.b_idx, w,
+                      int(tables.a_idx.numel()), int(vec),
+                      int(tiling.smem_tables), int(tiling.chunks),
+                      tiling.smem, out)
     return out.to(dtype)
 
 

@@ -3,12 +3,23 @@
 :func:`grouped_matmul_kernel` replaces
 ``src/repro/kernels/grouped_matmul.py:39`` ``grouped_matmul_pallas``:
 ``y[e] = x[e] @ w[e]`` for ``x (E, C, D)`` and ``w (E, D, F)``, summed in
-float32, ``y`` in ``x.dtype`` (float32 or bfloat16).  The CUDA kernel
-(``csrc/lm_kernels.cu``) gives each thread block a 64 x 64 tile of one
-expert's output and walks ``D`` in steps of 16 through shared memory;
-edge tiles are masked, so any ``C``, ``D`` and ``F``.  A matrix product
-at MoE widths is bound by the tensor cores; this first version runs on
-the CUDA cores (PERF.md has its time against the bound).
+float32, ``y`` in ``x.dtype`` (float32 or bfloat16).  A matrix product
+at MoE widths is bound by the tensor cores.  The CUDA kernels
+(``csrc/lm_kernels.cu``):
+
+* **bf16**: one thread block per (expert, 128-row tile of ``C``,
+  128-column tile of ``F``) on the tensor cores: a producer warp keeps
+  TMA loads of 64-deep slices of ``x[e]`` and ``w[e]`` in flight in a
+  ring of shared-memory stages, and two consumer warpgroups run
+  ``wgmma`` on them with float32 sums in registers.  TMA needs 16-byte
+  row strides, so :func:`padded_widths` pads ``D`` and ``F`` to multiples
+  of 8 (zero columns of ``x`` and rows of ``w`` add nothing; the padded
+  columns of ``y`` are sliced off), and the wrapper raises when a tensor
+  it hands to TMA has a base pointer that is not 16-byte aligned.
+* **float32**: a 64 x 64 output tile per thread block on the CUDA cores,
+  ``D`` in steps of 16 through shared memory (``wgmma``'s only float32
+  mode is TF32, which would miss the float32 tolerance); any ``C``,
+  ``D``, ``F``.
 
 On CPU tensors the wrapper runs the plain version
 (:func:`~repro_torch.kernels.ref.grouped_matmul_ref`); on CUDA tensors it
@@ -17,15 +28,39 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import native, ref
 
-TILE = 64          # output tile rows and columns of the kernel
+#: output tile (rows, columns) of the kernel for each precision
+TILES = {torch.float32: (64, 64), torch.bfloat16: (128, 128)}
+#: TMA's row strides are multiples of 16 bytes: 8 bf16
+ALIGN = 8
 
 
 def grouped_matmul_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Plain version of K8: the float32 batched product, cast back."""
     return ref.grouped_matmul_ref(x, w)
+
+
+def padded_widths(D: int, F: int, dtype: torch.dtype) -> tuple[int, int]:
+    """``D`` and ``F`` as the kernel in ``dtype`` takes them: rounded up
+    to multiples of :data:`ALIGN` for bf16, unchanged for float32."""
+    if dtype != torch.bfloat16:
+        return D, F
+    return -(-D // ALIGN) * ALIGN, -(-F // ALIGN) * ALIGN
+
+
+def pad_operands(x: torch.Tensor, w: torch.Tensor):
+    """``x (E, C, D)`` and ``w (E, D, F)`` zero-padded to the widths of
+    :func:`padded_widths` (the tensors themselves when none is needed)."""
+    D, F_ = w.shape[1:]
+    Dp, Fp = padded_widths(D, F_, x.dtype)
+    if Dp != D:
+        x = F.pad(x, (0, Dp - D))
+    if (Dp, Fp) != (D, F_):
+        w = F.pad(w, (0, Fp - F_, 0, Dp - D))
+    return x, w
 
 
 def grouped_matmul_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -39,12 +74,22 @@ def grouped_matmul_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"grouped_matmul: x (E, C, D) and w (E, D, F), "
                          f"got {tuple(x.shape)} and {tuple(w.shape)}")
     E, C, D = x.shape
-    F = w.shape[2]
-    if max(C, D, F) >= 2**31:
+    F_ = w.shape[2]
+    if max(C, D, F_) >= 2**31:
         raise ValueError("grouped_matmul: C, D and F must be below 2**31")
-    out = torch.empty((E, C, F), dtype=x.dtype, device=x.device)
-    native.check_grid(-(-F // TILE), -(-C // TILE), E)
-    if E * C * F:
-        native.launch("grouped_matmul", x.dtype, x.device, x, w, E, C, D, F,
-                      out)
-    return out
+    if x.dtype == torch.bfloat16:
+        if D == 0:
+            return torch.zeros((E, C, F_), dtype=x.dtype, device=x.device)
+        x, w = pad_operands(x, w)
+        for name, t in (("x", x), ("w", w)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"grouped_matmul: {name}'s base pointer "
+                                 f"is not 16-byte aligned (TMA needs it)")
+    Fp = w.shape[2]
+    out = torch.empty((E, C, Fp), dtype=x.dtype, device=x.device)
+    bm, bn = TILES[x.dtype]
+    native.check_grid(-(-Fp // bn), -(-C // bm), E)
+    if E * C * Fp:
+        native.launch("grouped_matmul", x.dtype, x.device, x, w, E, C,
+                      w.shape[1], Fp, out)
+    return out if Fp == F_ else out[..., :F_].contiguous()

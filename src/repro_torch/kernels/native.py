@@ -99,7 +99,8 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 _SIGNATURES = {
     "reduce": [_P, _L, _P, _L, _P, _P, _L, _I, _P, _P, _P, _I, _I, _P, _P],
     "splitk": [_P, _L, _P, _L, _P, _L, _I, _P, _P, _P, _I, _I, _P, _P],
-    "product": [_P, _L, _P, _L, _L, _P, _P, _P, _I, _I, _P, _P],
+    "product": [_P, _I, _I, _I, _P, _I, _I, _I, _L, _I, _P, _P, _P, _I, _I,
+                _I, _I, _I, _I, _P, _P],
     "combine": [_P, _P, _L, _I, _P, _P],
     "chain": [_P, _L, _P, _L, _P, _I, _P, _P, _P, _I, _I, _I, _P, _L, _P,
               _P, _L, _I, _I, _P, _P],
@@ -224,8 +225,11 @@ def launch(stem: str, dtype: torch.dtype, device: torch.device,
     fn = getattr(load_library(), f"spttn_{stem}_{_SUFFIX[dtype]}")
     c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a
               for a in args]
-    with torch.cuda.device(device):
-        err = fn(*c_args, torch.cuda.current_stream(device).cuda_stream)
+    if device.index is None or device.index == torch.cuda.current_device():
+        err = fn(*c_args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*c_args, torch.cuda.current_stream(device).cuda_stream)
     if err:
         raise RuntimeError(f"CUDA kernel spttn_{stem}_{_SUFFIX[dtype]} "
                            f"failed to launch: cudaError {err}")

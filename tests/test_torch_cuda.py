@@ -1,7 +1,10 @@
 """The port's CUDA kernels on the card: each against its plain version
-(K1, K2, K4 and the combine; K3, the fused chain, on 2- and 3-level
+(K1, K2, K4 and the combine; K2's scalar path, global tables and
+float64 table-order sums; K3, the fused chain, on 2- and 3-level
 chains; K5-K7, the paper kernels; K8-K11, the LM kernels, in float32
-and bfloat16 at sizes no tile or chunk divides).
+and bfloat16 at sizes no tile or chunk divides, and K8's bf16 tensor-
+core path at full tiles, on an identity weight and on a misaligned
+base).
 
 These tests need an NVIDIA GPU and ``nvcc`` (the kernels are built from
 ``src/repro_torch/csrc`` at first use), so they carry the ``cuda``
@@ -63,6 +66,8 @@ PRODUCTS = [
                  (3, 5, 2), id="Ze,Zfg->Zefg"),
     pytest.param([("k", (4,), True), ("kd", (4, 300), False)], "d", (300,),
                  id="Zk,kd->Zd-wide"),
+    pytest.param([("de", (3, 8), True), ("e", (8,), False)], "d", (3,),
+                 id="Zde,e->Zd-chunks"),
 ]
 DTYPES = [pytest.param(torch.float32, id="f32"),
           pytest.param(torch.float64, id="f64")]
@@ -155,10 +160,98 @@ def test_product_kernel_matches_plain(cuda, ops, out_subs, out_shape, dtype):
     rows = [torch.from_numpy(rng.standard_normal(
         (nrows if f else 1, int(np.prod(sh))))).to(cuda, dtype)
         for _, sh, f in ops]
+    tables = ir.index_tables(st, cuda)
+    tiling = _tiling(st, dtype)
+    assert nrows % tiling.rows and tiling.smem_tables
+    native.reset_launch_counts()
+    got = stages.run_product_stage(st, tables, rows, dtype)
+    torch.cuda.synchronize()
+    assert native.launch_counts()["product"] == 1
+    _close(got, stages.run_product_stage_plain(st, rows, dtype), dtype)
+
+
+def _tiling(st, dtype):
+    return stages.product_tiling(
+        st, torch.empty((), dtype=dtype).element_size())
+
+
+def _offset_rows(rng, nrows, w, dtype, dev, offset):
+    """``(nrows, w)`` rows whose base lies ``offset`` elements into a
+    fresh allocation (so not 16-byte aligned when ``offset`` is odd)."""
+    flat = torch.from_numpy(rng.standard_normal(nrows * w + offset))
+    return flat.to(dev, dtype)[offset:].view(nrows, w)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset"])
+@pytest.mark.parametrize("ops,out_subs,out_shape", [
+    pytest.param([("d", (3,), True), ("d", (3,), True)], "d", (3,),
+                 id="Zd,Zd->Zd-width3"),
+    pytest.param([("d", (64,), True), ("d", (64,), True)], "", (),
+                 id="Zd,Zd->Z"),
+    pytest.param([("d", (5,), True), ("d", (5,), True)], "", (),
+                 id="Zd,Zd->Z-width5"),
+    pytest.param([("", (), True), ("d", (16,), True)], "d", (16,),
+                 id="Z,Zd->Zd-16"),
+])
+def test_product_kernel_scalar_path_on_unaligned_rows(cuda, ops, out_subs,
+                                                      out_shape, offset,
+                                                      dtype):
+    """An operand view offset by one element takes the element-wise copy
+    (the scalar path); width 3 rows hold no whole 16-byte chunk."""
+    rng = np.random.default_rng(5)
+    nrows = 1001
+    st = _stage(ops, out_subs, out_shape, False, 128, 0)
+    rows = [_offset_rows(rng, nrows, int(np.prod(sh)), dtype, cuda,
+                         offset if i == 1 else 0)
+            for i, (_, sh, _) in enumerate(ops)]
+    assert (rows[1].data_ptr() % 16 == 0) == (offset == 0)
     got = stages.run_product_stage(st, ir.index_tables(st, cuda), rows,
                                    dtype)
     torch.cuda.synchronize()
     _close(got, stages.run_product_stage_plain(st, rows, dtype), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_product_kernel_reads_large_tables_from_global_memory(cuda, dtype):
+    rng = np.random.default_rng(6)
+    st = _stage([("k", (4,), True), ("kd", (4, 3000), False)], "d", (3000,),
+                False, 128, 0)
+    tables = ir.index_tables(st, cuda)
+    assert not _tiling(st, dtype).smem_tables
+    rows = [torch.from_numpy(rng.standard_normal((n, w))).to(cuda, dtype)
+            for n, w in ((517, 4), (1, 12000))]
+    got = stages.run_product_stage(st, tables, rows, dtype)
+    torch.cuda.synchronize()
+    _close(got, stages.run_product_stage_plain(st, rows, dtype), dtype)
+
+
+@pytest.mark.parametrize("ops,out_subs,out_shape", PRODUCTS)
+def test_product_kernel_f64_is_the_table_order_sum(cuda, ops, out_subs,
+                                                   out_shape):
+    """Float64: each output is its terms summed in table order, each
+    product and each sum rounded once (no fused multiply-add)."""
+    rng = np.random.default_rng(7)
+    nrows = 203
+    st = _stage(ops, out_subs, out_shape, False, 128, 0)
+    host = [rng.standard_normal((nrows if f else 1, int(np.prod(sh))))
+            for _, sh, f in ops]
+    tables = ir.index_tables(st, cuda)
+    got = stages.run_product_stage(
+        st, tables, [torch.from_numpy(h).to(cuda) for h in host],
+        torch.float64).cpu().numpy()
+    ptr, ai, bi = (t.cpu().numpy() for t in (tables.out_ptr, tables.a_idx,
+                                             tables.b_idx))
+    a, b = (h if f else np.broadcast_to(h, (nrows, h.shape[1]))
+            for h, (_, _, f) in zip(host, ops))
+    want = np.zeros_like(got)
+    for z in range(nrows):
+        for o in range(st.out_flat_dim):
+            s = 0.0
+            for t in range(ptr[o], ptr[o + 1]):
+                s = s + float(a[z, ai[t]]) * float(b[z, bi[t]])
+            want[z, o] = s
+    assert np.array_equal(got, want)
 
 
 def test_combine_kernel_empty_segments_are_zero(cuda):
@@ -348,6 +441,51 @@ def test_grouped_matmul_kernel_matches_plain(cuda, E, C, D, F, dtype):
     torch.cuda.synchronize()
     assert got.dtype == dtype
     _close(got, grouped_matmul.grouped_matmul_plain(x, w), dtype)
+
+
+@pytest.mark.parametrize("E,C,D,F", [(1, 128, 64, 128), (2, 256, 512, 384),
+                                     (1, 128, 1024, 256), (3, 300, 200, 136)])
+def test_grouped_matmul_bf16_tiles_and_stages(cuda, E, C, D, F):
+    """bf16 on the tensor cores at widths TMA takes as they are: full
+    tiles, several turns of the stage ring, ragged C and F edges."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = _randn(gen, (E, C, D), torch.bfloat16, cuda)
+    w = _randn(gen, (E, D, F), torch.bfloat16, cuda, D ** -0.5)
+    assert grouped_matmul.padded_widths(D, F, torch.bfloat16) == (D, F)
+    native.reset_launch_counts()
+    got = grouped_matmul.grouped_matmul_kernel(x, w)
+    torch.cuda.synchronize()
+    assert native.launch_counts()["grouped_matmul"] == 1
+    _close(got, grouped_matmul.grouped_matmul_plain(x, w), torch.bfloat16)
+
+
+@pytest.mark.parametrize("E,C,D", [(2, 200, 128), (1, 64, 72)])
+def test_grouped_matmul_bf16_identity_weight_is_exact(cuda, E, C, D):
+    """``x @ I`` is ``x`` bit for bit: a wrong shared-memory descriptor
+    or swizzle shows as misplaced values."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    x = _randn(gen, (E, C, D), torch.bfloat16, cuda)
+    eye = torch.eye(D, dtype=torch.bfloat16, device=cuda).expand(E, D, D)
+    got = grouped_matmul.grouped_matmul_kernel(x, eye.contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(got, x)
+
+
+def test_grouped_matmul_bf16_misaligned_base_raises_or_pads(cuda):
+    """A base pointer off 16 bytes raises when the tensor goes to TMA as
+    it is; when D or F needs padding the padded copy is aligned."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    E, C, D, F = 2, 40, 64, 32
+    flat = _randn(gen, (E * C * D + 1,), torch.bfloat16, cuda)
+    x = flat[1:].view(E, C, D)
+    w = _randn(gen, (E, D, F), torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        grouped_matmul.grouped_matmul_kernel(x, w)
+    x5 = flat[1:1 + E * C * 60].view(E, C, 60)     # D = 60: padded to 64
+    got = grouped_matmul.grouped_matmul_kernel(x5, w[:, :60].contiguous())
+    torch.cuda.synchronize()
+    _close(got, grouped_matmul.grouped_matmul_plain(
+        x5, w[:, :60].contiguous()), torch.bfloat16)
 
 
 @pytest.mark.parametrize("BH,T,D,window", [

@@ -10,8 +10,10 @@
   something else.
 """
 import ast
+import ctypes
 import dataclasses
 import os
+import re
 import subprocess
 import sys
 
@@ -181,6 +183,38 @@ def test_kernel_registry_names_real_sources_and_tpu_kernels():
         with open(os.path.join(REPO, path), encoding="utf-8") as f:
             lines = f.read().splitlines()
         assert lines[int(line) - 1].startswith("def "), info
+
+
+_C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+            "long long": ctypes.c_longlong, "int": ctypes.c_int,
+            "float": ctypes.c_float}
+
+
+@pytest.mark.parametrize("stem", sorted(native.KERNELS))
+def test_entry_point_signatures_match_the_ctypes_table(stem):
+    """``native._SIGNATURES`` gives ctypes the argument types of every C
+    entry point; a mismatch (an ``int`` passed where the entry point
+    takes ``long long``) would reach the card unnoticed, so each
+    precision's parameter list in the CUDA source is held to it."""
+    info = native.KERNELS[stem]
+    with open(os.path.join(REPO, info.source), encoding="utf-8") as f:
+        src = f.read().replace("\\\n", "\n")
+    found = re.findall(r'extern "C" int spttn_' + stem
+                       + r"_(##)?(\w+)\(([^)]*)\)", src)
+    assert found, stem
+    for *_, params in found:
+        types = [re.sub(r"\s*\b\w+$", "", p.strip())
+                 for p in params.split(",")]
+        assert [_C_TYPES[t] for t in types] == native._SIGNATURES[stem]
+
+
+def test_product_kernel_shared_limit_is_the_wrappers():
+    """K2's launcher sets the kernel's shared-memory limit once to the
+    most ``stages.product_tiling`` may ask for, ``MAX_SHARED_BYTES``."""
+    path = os.path.join(REPO, native.KERNELS["product"].source)
+    with open(path, encoding="utf-8") as f:
+        m = re.search(r"constexpr int kProductMaxSmem = (\d+);", f.read())
+    assert m and int(m.group(1)) == native.MAX_SHARED_BYTES
 
 
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):

@@ -10,7 +10,8 @@ kernel in interpret mode on the same padded inputs:
 
 They also check the index tables the CUDA kernels read: evaluated with
 numpy exactly as the kernels walk them, they reproduce each stage's
-einsum.  Tolerance: float32 ``|port - ref| <= 1e-5 * max(1, max|ref|)``
+einsum; and K2's tiling (rows a tile, table mode, shared bytes, chunk
+swizzle), which the wrapper computes on the host.  Tolerance: float32 ``|port - ref| <= 1e-5 * max(1, max|ref|)``
 (another summation order); float64 ``1e-12`` relative.
 """
 import numpy as np
@@ -217,6 +218,150 @@ def test_index_tables_reproduce_the_einsum(ops, out_subs, out_shape):
             for r, (_, sh, f) in zip(rows, ops)]
     want = np.einsum(ts.expr, *vals).reshape(nz, -1)
     np.testing.assert_allclose(walked, want, rtol=1e-12, atol=1e-12)
+
+
+# the stages whose K2 tiling is checked: the parity suite's, and the
+# main path's at full width (MTTKRP / TTTP3 R = 64, TTMc3 S = 16)
+TILED_STAGES = PRODUCT_STAGES + REDUCE_STAGES + [
+    pytest.param([("", (), True), ("d", (64,), True)], "d", (64,),
+                 id="Z,Zd->Zd-64"),
+    pytest.param([("", (), True), ("e", (16,), True)], "e", (16,),
+                 id="Z,Ze->Ze-16"),
+    pytest.param([("d", (64,), True), ("d", (64,), True)], "", (),
+                 id="Zd,Zd->Z-64"),
+    pytest.param([("d", (3,), True), ("d", (3,), True)], "d", (3,),
+                 id="Zd,Zd->Zd-3"),
+    pytest.param([("k", (4,), True), ("kd", (4, 3000), False)], "d",
+                 (3000,), id="Zk,kd->Zd-global-tables"),
+]
+
+
+def _tiling(ts, itemsize):
+    return tst.product_tiling(ts, itemsize), tir.index_tables(ts, "cpu")
+
+
+@pytest.mark.parametrize("itemsize", [4, 8], ids=["f32", "f64"])
+@pytest.mark.parametrize("ops,out_subs,out_shape", TILED_STAGES)
+def test_product_tiling_fits_shared_memory_and_keeps_alignment(
+        ops, out_subs, out_shape, itemsize):
+    """K2's tile: a multiple of 4 rows, so every operand tile and output
+    tile starts and ends on 16 bytes; the shared bytes are the kernel's
+    sum (``product_smem`` in ``csrc/stage_kernels.cu``) and fit the
+    budget (or, for four rows that do not, the block's whole shared
+    memory); the tables sit in shared memory exactly when they fit
+    theirs."""
+    _, ts = _stages(ops, out_subs, out_shape, False, 8, 0)
+    t, tables = _tiling(ts, itemsize)
+    assert t.rows % 4 == 0 and 4 <= t.rows <= tst.PRODUCT_MAX_ROWS
+    widths = [op.flat_dim for op in ts.operands]
+    for w, op in zip(widths, ts.operands):
+        if op.fiber:
+            assert t.rows * w * itemsize % 16 == 0
+    assert t.rows * ts.out_flat_dim * itemsize % 16 == 0
+    table_bytes = 4 * (ts.out_flat_dim + 1 + 2 * tables.a_idx.numel())
+    assert t.smem_tables == (-(-table_bytes // 16) * 16
+                             <= tst.PRODUCT_TABLE_SMEM)
+    r16 = lambda n: -(-n // 16) * 16  # noqa: E731
+    smem = sum(r16((2 * t.rows if op.fiber else 1) * w * itemsize)
+               for w, op in zip(widths, ts.operands))
+    smem += r16(t.rows * ts.out_flat_dim * itemsize)
+    smem += r16(table_bytes) if t.smem_tables else 0
+    assert t.smem == smem
+    budget = tst.PRODUCT_SMEM if t.smem <= tst.PRODUCT_SMEM \
+        else native.MAX_SHARED_BYTES
+    assert t.smem <= budget
+    if t.rows < tst.PRODUCT_MAX_ROWS:          # the most rows that fit
+        per_row = itemsize * (ts.out_flat_dim + 2 * sum(
+            w for w, op in zip(widths, ts.operands) if op.fiber))
+        assert t.smem + 4 * per_row > budget
+
+
+def test_product_tiling_raises_when_four_rows_do_not_fit():
+    _, ts = _stages([("d", (128,), True), ("e", (128,), True)], "de",
+                    (128, 128), False, 8, 0)
+    with pytest.raises(ValueError, match="do not fit"):
+        tst.product_tiling(ts, 4)
+
+
+@pytest.mark.parametrize("ops,out_subs,out_shape,itemsize,want", [
+    ([("d", (64,), True), ("d", (64,), True)], "", (), 4, True),
+    ([("d", (64,), True), ("d", (64,), True)], "", (), 8, True),
+    ([("d", (6,), True), ("d", (6,), True)], "", (), 4, False),
+    ([("d", (6,), True), ("d", (6,), True)], "", (), 8, True),
+    ([("de", (3, 8), True), ("e", (8,), False)], "d", (3,), 4, True),
+    ([("", (), True), ("d", (64,), True)], "d", (64,), 4, False),
+    ([("d", (4,), True), ("e", (4,), True)], "de", (4, 4), 4, False),
+    ([("k", (4,), True), ("kd", (4, 3), False)], "d", (3,), 4, False),
+])
+def test_term_chunks_marks_runs_of_whole_chunks(ops, out_subs, out_shape,
+                                                itemsize, want):
+    """K2 reads terms a 16-byte chunk at a time only where every output's
+    terms are runs of one whole chunk of both operands, in table order,
+    and every fiber row is whole chunks."""
+    _, ts = _stages(ops, out_subs, out_shape, False, 8, 0)
+    assert tst.term_chunks(ts, itemsize) is want
+    assert tst.product_tiling(ts, itemsize).chunks is want
+
+
+@pytest.mark.parametrize("width,itemsize,mask", [
+    (64, 4, 7), (16, 4, 3), (3, 4, 0), (6, 4, 0), (8, 4, 1), (24, 4, 1),
+    (64, 8, 7), (2, 8, 0), (1, 4, 0)])
+def test_chunk_swizzle_stays_inside_the_row(width, itemsize, mask):
+    """The XOR mask permutes whole 16-byte chunks within a row: every
+    element of every row maps to a distinct slot of that row."""
+    assert tst.chunk_swizzle(width, itemsize) == mask
+    v = 16 // itemsize
+    for r in range(16):
+        cols = np.arange(width)
+        slot = ((cols // v) ^ (r & mask)) * v + cols % v if mask else cols
+        assert sorted(slot) == list(range(width))
+
+
+@pytest.mark.parametrize("ops,out_subs,out_shape", PRODUCT_STAGES)
+def test_product_tile_walk_reproduces_the_einsum(ops, out_subs, out_shape):
+    """A Python walk of K2 as the kernel runs it: tiles of ``rows`` fiber
+    rows staged through the chunk swizzle, each output element the
+    table-order sum of its terms read back through the same index; it
+    reproduces the stage's einsum with a ragged last tile."""
+    _, ts = _stages(ops, out_subs, out_shape, False, 8, 0)
+    t, tables = _tiling(ts, 8)
+    rng = np.random.default_rng(9)
+    nrows = t.rows * 2 + 3
+    rows = [rng.standard_normal((nrows if f else 1, int(np.prod(sh))))
+            for _, sh, f in ops]
+    ptr, ai, bi = (x.numpy() for x in (tables.out_ptr, tables.a_idx,
+                                       tables.b_idx))
+    v = 2                                      # float64: 2 a chunk
+
+    def slot(r, col, w, swz):
+        return r * w + (((col // v) ^ (r & swz)) * v + col % v
+                        if swz else col)
+
+    out = np.zeros((nrows, ts.out_flat_dim))
+    for r0 in range(0, nrows, t.rows):
+        n = min(t.rows, nrows - r0)
+        staged = []
+        for x, op, swz in zip(rows, ts.operands, t.swizzle):
+            w = op.flat_dim
+            buf = np.full(t.rows * w if op.fiber else w, np.nan)
+            for e in range(n * w if op.fiber else w):
+                r, c = divmod(e, w)
+                buf[slot(r, c, w, swz)] = (x[r0:r0 + n] if op.fiber
+                                           else x).reshape(-1)[e]
+            staged.append(buf)
+        for i in range(n * ts.out_flat_dim):
+            r, o = divmod(i, ts.out_flat_dim)
+            ra, rb = (r if op.fiber else 0 for op in ts.operands)
+            (wa, wb), (sa, sb) = ([op.flat_dim for op in ts.operands],
+                                  t.swizzle)
+            out[r0 + r, o] = sum(
+                staged[0][slot(ra, ai[k], wa, sa)]
+                * staged[1][slot(rb, bi[k], wb, sb)]
+                for k in range(ptr[o], ptr[o + 1]))
+    vals = [x.reshape(((nrows,) if f else ()) + sh)
+            for x, (_, sh, f) in zip(rows, ops)]
+    want = np.einsum(ts.expr, *vals).reshape(nrows, -1)
+    np.testing.assert_allclose(out, want, rtol=1e-12, atol=1e-12)
 
 
 def test_cpu_tensors_never_launch_a_kernel():

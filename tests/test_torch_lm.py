@@ -132,6 +132,29 @@ def test_grouped_matmul_any_sizes_match_oracle(dtype):
            jops.grouped_matmul(jx, jw, use_pallas=False), _rel(dtype))
 
 
+@pytest.mark.parametrize("E,C,D,F", [(3, 70, 33, 65), (1, 5, 3, 7),
+                                     (2, 130, 1000, 20), (2, 16, 64, 128)])
+def test_grouped_matmul_padding_rule_matches_reference(E, C, D, F):
+    """K8's bf16 path takes D and F in multiples of 8 (TMA's 16-byte
+    strides): the padded plain product, sliced back to F, equals the
+    reference on the same inputs; float32 is never padded."""
+    from repro_torch.kernels import grouped_matmul as gmm
+    Dp, Fp = gmm.padded_widths(D, F, torch.bfloat16)
+    assert (Dp % 8, Fp % 8) == (0, 0) and 0 <= Dp - D < 8 \
+        and 0 <= Fp - F < 8
+    assert gmm.padded_widths(D, F, torch.float32) == (D, F)
+    (jx, jw), (x, w) = _arrays(BF16, (E, C, D), (E, D, F), seed=4)
+    xp, wp = gmm.pad_operands(x, w)
+    assert tuple(xp.shape) == (E, C, Dp) and tuple(wp.shape) == (E, Dp, Fp)
+    if (Dp, Fp) == (D, F):
+        assert xp is x and wp is w
+    assert not xp[..., D:].any() and not wp[:, D:].any() \
+        and not wp[..., F:].any()
+    got = gmm.grouped_matmul_plain(xp, wp)[..., :F]
+    _close(got, gmm.grouped_matmul_plain(x, w).float(), _rel(BF16))
+    _close(got, jops.grouped_matmul(jx, jw, use_pallas=False), _rel(BF16))
+
+
 # --------------------------------------------------------------------- #
 # K10 wkv6
 # --------------------------------------------------------------------- #
