@@ -44,16 +44,20 @@ any failure exits non-zero):
    T = 4,096, 40 heads of 64; bf16 and f32); recurrentgemma-9b's RG-LRU
    (K11, B = 8, T = 4,096, D = 4,096; bf16 and f32).
 
-Every path is timed (CUDA events, median of 10 after 2 warm-ups), its
-peak memory read, and one call traced with ``torch.profiler`` after a
+Every path is timed (CUDA events, median of 10 after 2 warm-ups) and its
+peak memory read.  Then one counted run, with the launch counts zeroed
+just before it and read just after, records the inputs of every kernel
+it launches and how many calls each made; it fails if a kernel the path
+runs was not launched, or if the recorded calls do not account for
+every launch.  Then one call is traced with ``torch.profiler`` after a
 warm-up step with every event kept (device time by kernel and the
 device's idle share: ``PROFILE`` lines); a trace that holds another
-number of launches of a kernel than the launch counts is taken again
-with twice the idle padding around the traced call (from 0.25 s for
-each path), and the run fails after six such traces.
-Then one counted run, with the launch counts zeroed just before it and
-read just after, records the inputs of every kernel it launches; it
-fails if a kernel the path runs was not launched.  Per kernel, on the
+number of launches of a kernel than the launch counts, or less device
+time for a kernel than the sum of its launches' bounds (the profiler's
+clock drifts), is taken again with twice the idle padding around the
+traced call (from 0.25 s for each path), and the run fails after six
+such traces.  The fused chain on ``cuda`` launches K3 over the chain's
+work items and the combine of their partial rows.  Per kernel, on the
 inputs the path gave it: the kernel against its plain PyTorch version
 (tolerance ``1e-4 * max(1, max|plain|)``: float32 with another
 summation order; for bf16 results, where a float32 sum in another order
@@ -63,8 +67,9 @@ smaller of ``1e-2 * max(1, max|plain|)`` and ``2**-7 * |plain| + 2**-4
 for every kernel with a library call also its time and the library
 call's over ten calls back to back (``ms_back_to_back``,
 ``library_ms_back_to_back``: the host's work to launch one call then
-overlaps the device's work on the one before), achieved rates (``achieved_tflop_s``, ``achieved_tb_s``; a
-``TENSOR_CORES`` line beside the bound for K8 in bf16, on wgmma),
+overlaps the device's work on the one before), achieved rates
+(``achieved_tflop_s``, ``achieved_tb_s``; a ``TENSOR_CORES`` line beside
+the bound for K8 in bf16, on wgmma),
 and the least time the card could take for the same work (bytes over
 3.35 TB/s, or operations over the peak for their type, whichever is
 larger: 989 TFLOP/s for bf16 matrix products on the tensor cores (K8,
@@ -79,6 +84,7 @@ name and power limit from ``nvidia-smi`` and
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
 import os
@@ -87,6 +93,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Callable, NamedTuple
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 NELL2_SHAPE = (12092, 9184, 28818)
@@ -206,23 +213,27 @@ def ptxas_kernels(report: str) -> list[dict]:
     return recs
 
 
-def profile_path(label: str, fn, event_ms: float, pad_s: float = 0.25,
-                 attempts: int = 6) -> None:
+def profile_path(label: str, fn, event_ms: float, need_ms: dict,
+                 pad_s: float = 0.25, attempts: int = 6) -> None:
     """Device time by kernel for one call of ``fn`` (torch.profiler), and
     the device's idle share of the call's unprofiled CUDA-event time.
 
     One warm-up step runs under the profiler before the traced step (the
     first profiled call lost launches), and every event is kept
-    (``acc_events``).  The traced step's launches of each kernel of this
-    package must equal its launch count over the same call.  The
-    profiler places device events by a clock that drifts from the host's
-    during a run (its own warnings read "GPU op timestamp < runtime
-    timestamp" by 30 ms, then 105 ms 13 s later), and drops what falls
-    outside the traced step: so the traced call is padded with ``pad_s``
-    of idle host time on both sides, and an incomplete trace is taken
-    again with twice the padding, up to ``attempts`` times.  The
-    ``PROFILE`` line gives the attempts and the padding; the run fails
-    when no trace was complete."""
+    (``acc_events``).  A trace is complete when, for every kernel of
+    this package, the traced step's launches equal its launch count over
+    the same call, and its traced device time is at least ``need_ms``,
+    the sum of its launches' bounds (the least time the card could take
+    for their work).  The profiler places device events by a clock that
+    drifts from the host's during a run (its own warnings read "GPU op
+    timestamp < runtime timestamp" by 30 ms, then 105 ms 13 s later): it
+    drops what falls outside the traced step, and once put a kernel's
+    device time under its bound.  So the traced call is padded with
+    ``pad_s`` of idle host time on both sides, and an incomplete trace is
+    taken again with twice the padding, up to ``attempts`` times; each
+    retake is logged with the check that failed (``launches`` or
+    ``clock``).  The ``PROFILE`` line gives the attempts and the padding;
+    the run fails when no trace was complete."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -250,11 +261,21 @@ def profile_path(label: str, fn, event_ms: float, pad_s: float = 0.25,
                   and not e.key.startswith("ProfilerStep")]
         traced = {stem: sum(e.count for e in events if name in e.key)
                   for stem, name in TRACE_NAMES.items()}
-        if traced == counts:
+        device_ms = {stem: sum(e.self_device_time_total for e in events
+                               if name in e.key) / 1e3
+                     for stem, name in TRACE_NAMES.items()}
+        short = {stem: [device_ms[stem], need]
+                 for stem, need in need_ms.items()
+                 if counts[stem] and device_ms[stem] < need}
+        why = (["launches"] if traced != counts else []) + \
+            (["clock"] if short else [])
+        if not why:
             break
-        log(f"PROFILE {label}: attempt {attempt} (padding {pad_s} "
-            f"s): {len(events)} kinds of device event; the trace holds "
-            f"launches {traced}, the launch counts say {counts}")
+        log(f"PROFILE {label}: attempt {attempt} (padding {pad_s} s) "
+            f"retaken for its {' and '.join(why)}: {len(events)} kinds of "
+            f"device event; the trace holds launches {traced}, the launch "
+            f"counts say {counts}; [traced ms, launches x bound ms] under "
+            f"the bound: {short}")
         pad_s *= 2
     else:
         raise AssertionError(f"PROFILE {label}: no complete trace in "
@@ -266,6 +287,8 @@ def profile_path(label: str, fn, event_ms: float, pad_s: float = 0.25,
         "path": label, "event_ms": event_ms, "device_busy_ms": busy,
         "idle_share": 1 - busy / event_ms if rows else None,
         "launches": counts, "attempts": attempt, "padding_s": pad_s,
+        "kernel_device_ms": {s: device_ms[s] for s in need_ms},
+        "kernel_bound_ms": need_ms,
         "top": [{"kernel": k[:100], "calls": c, "device_ms": t}
                 for t, c, k in rows[:12]]}))
 
@@ -273,9 +296,10 @@ def profile_path(label: str, fn, event_ms: float, pad_s: float = 0.25,
 # --------------------------------------------------------------------- #
 # capture the kernels' inputs through the lowering registry and wrappers
 # --------------------------------------------------------------------- #
-def recording_lowerings(sink: dict):
+def recording_lowerings(sink: dict, calls: collections.Counter):
     """Shadow the two registered Hopper lowerings with recorders that
-    keep the first inputs of each (kind, target, expr) and delegate."""
+    keep the first inputs of each (kind, target, expr), count its calls
+    in ``calls`` and delegate."""
     from repro_torch.kernels.codegen.ir import (Lowering, get_lowering,
                                                 register_lowering)
 
@@ -283,27 +307,29 @@ def recording_lowerings(sink: dict):
     # sits in a reference cycle, so methods closing over ``sink`` would
     # keep the recorded tensors alive until a gc pass
     class Recorder(Lowering):
-        def __init__(self, inner, sink):
-            self.inner, self.target, self.sink = inner, inner.target, sink
+        def __init__(self, inner, sink, calls):
+            self.inner, self.target = inner, inner.target
+            self.sink, self.calls = sink, calls
+
+        def record(self, key, ir, args):
+            self.sink.setdefault(key, (ir, *args))
+            self.calls[key] += 1
 
         def reduce(self, ir, *args):
-            self.sink.setdefault(("reduce", self.target, ir.stage.expr),
-                                 (ir, *args))
+            self.record(("reduce", self.target, ir.stage.expr), ir, args)
             return self.inner.reduce(ir, *args)
 
         def product(self, ir, *args):
-            self.sink.setdefault(("product", self.target, ir.stage.expr),
-                                 (ir, *args))
+            self.record(("product", self.target, ir.stage.expr), ir, args)
             return self.inner.product(ir, *args)
 
         def chain(self, ir, *args):
-            self.sink.setdefault(("chain", self.target, chain_expr(ir)),
-                                 (ir, *args))
+            self.record(("chain", self.target, chain_expr(ir)), ir, args)
             return self.inner.chain(ir, *args)
 
     inners = [get_lowering(t) for t in ("hopper", "hopper-splitk")]
     for inner in inners:
-        register_lowering(Recorder(inner, sink))
+        register_lowering(Recorder(inner, sink, calls))
     return lambda: [register_lowering(i) for i in inners]
 
 
@@ -313,15 +339,16 @@ def chain_expr(ir) -> str:
 
 # every module that calls the segment-combine kernel, and what it sums
 COMBINE_CALLERS = {"repro_torch.core.executor": "segment sum",
-                   "repro_torch.kernels.codegen.lower_gpu": "split-K"}
+                   "repro_torch.kernels.codegen.lower_gpu": "split-K",
+                   "repro_torch.kernels.codegen.stages": "K3 items"}
 
 
-def recording_combines(sink: dict):
+def recording_combines(sink: dict, calls: collections.Counter):
     """Shadow ``segment_combine`` in each module that calls it with a
     recorder that keeps the first inputs of each (caller, rows shape,
-    nseg) and delegates.  The returned ``restore()`` puts the kernel
-    wrapper back and returns how many recorded calls launched the
-    kernel."""
+    nseg), counts the calls that launch the kernel in ``calls`` and
+    delegates.  The returned ``restore()`` puts the kernel wrapper back
+    and returns how many recorded calls launched the kernel."""
     import importlib
     mods = [importlib.import_module(m) for m in COMBINE_CALLERS]
     inner = mods[0].segment_combine
@@ -329,9 +356,11 @@ def recording_combines(sink: dict):
 
     def recorder(site):
         def combine(rows, ptr, nseg):
-            sink.setdefault((site, tuple(rows.shape), nseg),
-                            (rows, ptr, nseg))
-            launched[0] += bool(rows.is_cuda and nseg * rows.shape[1])
+            key = (site, tuple(rows.shape), nseg)
+            sink.setdefault(key, (rows, ptr, nseg))
+            launches = bool(rows.is_cuda and nseg * rows.shape[1])
+            calls[key] += launches
+            launched[0] += launches
             return inner(rows, ptr, nseg)
         return combine
 
@@ -350,15 +379,17 @@ def recording_combines(sink: dict):
 PAPER_WRAPPERS = ("mttkrp_kernel", "ttmc_kernel", "tttp_kernel")
 
 
-def recording_paper(sink: dict):
+def recording_paper(sink: dict, calls: collections.Counter):
     """Shadow the K5-K7 wrappers (which ``kernels/ops.py`` calls through
-    ``kernels.paper``) with recorders of their first inputs."""
+    ``kernels.paper``) with recorders of their first inputs and their
+    number of calls."""
     from repro_torch.kernels import paper
     inners = {n: getattr(paper, n) for n in PAPER_WRAPPERS}
 
     def recorder(name):
         def wrapper(*args, **kwargs):
             sink.setdefault(name, (args, kwargs))
+            calls[name] += 1
             return inners[name](*args, **kwargs)
         return wrapper
 
@@ -367,10 +398,10 @@ def recording_paper(sink: dict):
     return lambda: [setattr(paper, n, f) for n, f in inners.items()]
 
 
-def recording_lm(sink: dict):
+def recording_lm(sink: dict, calls: collections.Counter):
     """Shadow the K8-K11 wrappers (which ``kernels/ops.py`` calls through
     their modules) with recorders of the first inputs of each (stem,
-    shapes, dtype)."""
+    shapes, dtype) and its number of calls."""
     import importlib
     mods = {stem: importlib.import_module(f"repro_torch.kernels.{stem}")
             for stem in LM_STEMS}
@@ -381,6 +412,7 @@ def recording_lm(sink: dict):
             key = (stem, tuple(tuple(a.shape) for a in args
                                if hasattr(a, "shape")), args[0].dtype)
             sink.setdefault(key, args)
+            calls[key] += 1
             return inners[stem](*args)
         return wrapper
 
@@ -422,7 +454,7 @@ def sdpa_band(q, k, v, window: int):
         "boolean band mask"
 
 
-def lm_entries(captured: dict) -> list[tuple]:
+def lm_entries(captured: dict, calls: collections.Counter) -> list:
     """Each captured K8-K11 call, as :func:`stage_entries`."""
     import importlib
 
@@ -465,10 +497,11 @@ def lm_entries(captured: dict) -> list[tuple]:
             ops = 8 * B * T * D
         log(f"library {stem} {shapes}: {note}")
         label = " ".join(map(str, shapes)) + f" {str(dtype)[6:]}"
-        out.append((stem, native.KERNELS[stem].name, label, "ops",
-                    lambda kern=kern, a=args: kern(*a),
-                    lambda plain=plain, a=args: plain(*a),
-                    lib, nbytes, ops))
+        out.append(Entry(stem, native.KERNELS[stem].name, label, "ops",
+                         lambda kern=kern, a=args: kern(*a),
+                         lambda plain=plain, a=args: plain(*a),
+                         lib, nbytes, ops, dtype,
+                         calls[stem, shapes, dtype]))
     return out
 
 
@@ -497,22 +530,63 @@ def bound(nbytes: float, ops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def chain_entry(ir, args, target: str) -> tuple:
-    """A captured K3 call as a :func:`stage_entries` entry."""
+class Entry(NamedTuple):
+    """One kernel call of a counted run, on the inputs it was given:
+    ``kern`` and ``plain`` run it again, ``lib`` is one PyTorch call for
+    the same function or None, and ``nbytes`` and ``ops`` are the work
+    of ``kern`` (its ``KERNEL_PHASE`` bound).  The counted run made
+    ``calls`` such calls, each one launch of ``stem`` whose own work is
+    ``launch_work`` (``(nbytes, ops)`` when None; K3's wrapper launches
+    the combine too).  ``measured`` False marks a launch that gets no
+    record of its own (a K2 already measured on the other target, the
+    K4 inside the split-K chain): it counts only towards the trace's
+    bound."""
+
+    stem: str
+    name: str
+    stage: str
+    where: str
+    kern: Callable
+    plain: Callable | None
+    lib: Callable | None
+    nbytes: int
+    ops: int
+    dtype: object
+    calls: int
+    launch_work: tuple[int, int] | None = None
+    measured: bool = True
+
+    def launch_bound_ms(self) -> float:
+        """The least time the card could take for one launch of ``stem``
+        of this call."""
+        nbytes, ops = self.launch_work or (self.nbytes, self.ops)
+        return bound(nbytes, ops, peak(self.stem, self.dtype)[0])[0]
+
+
+def chain_entry(ir, args, target: str, calls: int) -> Entry:
+    """A captured K3 call as a :func:`stage_entries` entry: the chain
+    kernel over the work items, which writes one partial row an item,
+    and the combine that reads them back and writes the output."""
     import torch
     from repro_torch.kernels.codegen import stages
     layout, tables, link_tables, padded, link_arrays, dtype = args
-    st = ir.stage
+    st, items = ir.stage, layout.items
     P = layout.padded_len
     isz = torch.empty((), dtype=dtype).element_size()
+    w_out = ir.links[-1].out_flat_dim
+    part_bytes = items.nitems * w_out * isz
     nbytes = (stage_nbytes(st, P, isz) + P * 4 + table_nbytes(tables)
-              + layout.levels.numel() * 4 + layout.out_block_ptr.numel() * 8
-              + ir.nseg_out * ir.links[-1].out_flat_dim * isz)
+              + layout.levels.numel() * 4 + items.item_block.numel() * 8
+              + part_bytes)
     ops = 2 * P * int(tables.a_idx.numel()) + P * st.out_flat_dim
     for j, (link, arr, tab) in enumerate(zip(ir.links, link_arrays,
                                              link_tables)):
         nbytes += arr.numel() * isz + table_nbytes(tab)
         ops += 2 * ir.nseg_lvls[j] * int(tab.a_idx.numel())
+    launch_work = (nbytes, ops)
+    nbytes += (part_bytes + items.item_ptr.numel() * 8
+               + ir.nseg_out * w_out * isz)
+    ops += items.nitems * w_out
 
     def kern():
         return stages.run_fused_chain_stage(ir, *args)
@@ -521,29 +595,53 @@ def chain_entry(ir, args, target: str) -> tuple:
         return stages.run_fused_chain_stage_plain(ir, layout, padded,
                                                   link_arrays, dtype)
 
-    return ("chain", "K3 fused chain", chain_expr(ir), target, kern, plain,
-            None, nbytes, ops)
+    return Entry("chain", "K3 fused chain", chain_expr(ir), target, kern,
+                 plain, None, nbytes, ops, dtype, calls, launch_work)
 
 
-def stage_entries(captured: dict) -> list[tuple]:
-    """Each captured stage call as (stem, name, stage, target, kernel,
-    plain, library or None, bytes, operations)."""
+def splitk_entry(st, tables, mask, padded, dtype, expr, target,
+                 calls: int, measured: bool = True) -> Entry:
+    """K4's partials of ``st`` as a :func:`stage_entries` entry."""
     import torch
     from repro_torch.kernels.codegen import lower_gpu, stages
+    P = mask.shape[0]
+    isz = torch.empty((), dtype=dtype).element_size()
+    w = st.out_flat_dim
+    nbytes = (stage_nbytes(st, P, isz) + P * 4 + table_nbytes(tables)
+              + P // st.block * w * isz)
+
+    def kern():
+        return lower_gpu.splitk_partials(st, tables, mask, padded)
+
+    def plain():
+        return stages.block_partials_plain(st, mask, padded)
+
+    return Entry("splitk", "K4 split-K partials", expr, target, kern, plain,
+                 None, nbytes, 2 * P * int(tables.a_idx.numel()) + P * w,
+                 dtype, calls, measured=measured)
+
+
+def stage_entries(captured: dict, calls: collections.Counter) -> list:
+    """Each captured stage call as an :class:`Entry`."""
+    import torch
+    from repro_torch.kernels.codegen import stages
     from repro_torch.kernels.codegen.ir import get_lowering
     out = []
-    for (kind, target, expr), (ir, *args) in captured.items():
-        if kind == "product" and target == "hopper-splitk":
-            continue                  # the same K2 as on "hopper"
+    for key, (ir, *args) in captured.items():
+        kind, target, expr = key
+        n = calls[key]
         if kind == "chain":
             if target == "hopper":
-                out.append(chain_entry(ir, args, target))
-            else:                     # K4 + combine + einsum: no new kernel
-                layout, _, _, padded, link_arrays, dtype = args
+                out.append(chain_entry(ir, args, target, n))
+            else:   # K4 + combine + einsum: no kernel of its own
+                layout, tables, _, padded, link_arrays, dtype = args
                 check(f"split-K chain {expr}",
                       get_lowering(target).chain(ir, *args),
                       stages.run_fused_chain_stage_plain(
                           ir, layout, padded, link_arrays, dtype))
+                out.append(splitk_entry(ir.stage, tables, layout.mask,
+                                        padded, dtype, expr, target, n,
+                                        measured=False))
             continue
         st = ir.stage
         w = st.out_flat_dim
@@ -567,49 +665,49 @@ def stage_entries(captured: dict) -> list[tuple]:
 
             nbytes = stage_nbytes(st, nrows, isz) + \
                 table_nbytes(tables) + nrows * w * isz
-            out.append(("product", "K2 product", expr, target, kern, plain,
-                        lib, nbytes, 2 * nrows * nterms))
+            # on "hopper-splitk" the same K2 as on "hopper"
+            out.append(Entry("product", "K2 product", expr, target, kern,
+                             plain, lib, nbytes, 2 * nrows * nterms, dtype,
+                             n, measured=target == "hopper"))
             continue
         tables, block_ptr, mask, padded, dtype = args
+        if target != "hopper":
+            out.append(splitk_entry(st, tables, mask, padded, dtype, expr,
+                                    target, n))
+            continue
         P = mask.shape[0]
         isz = torch.empty((), dtype=dtype).element_size()
-        nterms = int(tables.a_idx.numel())
-        in_bytes = stage_nbytes(st, P, isz) + P * 4 + table_nbytes(tables)
-        ops = 2 * P * nterms + P * w
-        if target == "hopper":
-            def kern(st=st, tables=tables, block_ptr=block_ptr, mask=mask,
-                     padded=padded, dtype=dtype):
-                return stages.run_reduce_stage(st, tables, block_ptr, mask,
-                                               padded, dtype)
 
-            def plain(st=st, block_ptr=block_ptr, mask=mask, padded=padded,
-                      dtype=dtype):
-                return stages.run_reduce_stage_plain(st, block_ptr, mask,
-                                                     padded, dtype)
+        def kern(st=st, tables=tables, block_ptr=block_ptr, mask=mask,
+                 padded=padded, dtype=dtype):
+            return stages.run_reduce_stage(st, tables, block_ptr, mask,
+                                           padded, dtype)
 
-            out.append(("reduce", "K1 reduce", expr, target, kern, plain,
-                        None, in_bytes + block_ptr.numel() * 8
-                        + st.nseg * w * isz, ops))
-        else:
-            def kern(st=st, tables=tables, mask=mask, padded=padded):
-                return lower_gpu.splitk_partials(st, tables, mask, padded)
+        def plain(st=st, block_ptr=block_ptr, mask=mask, padded=padded,
+                  dtype=dtype):
+            return stages.run_reduce_stage_plain(st, block_ptr, mask,
+                                                 padded, dtype)
 
-            def plain(st=st, mask=mask, padded=padded):
-                return stages.block_partials_plain(st, mask, padded)
-
-            out.append(("splitk", "K4 split-K partials", expr, target, kern,
-                        plain, None,
-                        in_bytes + P // st.block * w * isz, ops))
+        nbytes = (stage_nbytes(st, P, isz) + P * 4 + table_nbytes(tables)
+                  + block_ptr.numel() * 8 + st.nseg * w * isz)
+        out.append(Entry("reduce", "K1 reduce", expr, target, kern, plain,
+                         None, nbytes,
+                         2 * P * int(tables.a_idx.numel()) + P * w, dtype,
+                         n))
     return out
 
 
-def combine_entries(captured: dict, backend: str) -> list[tuple]:
-    """Each captured segment-combine call, as :func:`stage_entries`."""
+def combine_entries(captured: dict, calls: collections.Counter,
+                    backend: str, seen: set) -> list:
+    """Each captured segment-combine call, as :func:`stage_entries`; a
+    shape measured on an earlier path (in ``seen``) is not measured
+    again."""
     import torch
     from repro_torch.kernels.segment import (segment_combine,
                                              segment_combine_plain)
     out = []
-    for (site, (n, w), _), (rows, ptr, nseg) in captured.items():
+    for key, (rows, ptr, nseg) in captured.items():
+        site, (n, w), _ = key
 
         def kern(rows=rows, ptr=ptr, nseg=nseg):
             return segment_combine(rows, ptr, nseg)
@@ -621,13 +719,14 @@ def combine_entries(captured: dict, backend: str) -> list[tuple]:
             return torch.segment_reduce(rows, "sum", offsets=ptr, axis=0)
 
         nbytes = (n + nseg) * w * rows.element_size() + ptr.numel() * 8
-        out.append(("combine", "K4 segment combine",
-                    f"{site} ({n}, {w}) -> ({nseg}, {w})",
-                    backend, kern, plain, lib, nbytes, n * w))
+        out.append(Entry("combine", "K4 segment combine",
+                         f"{site} ({n}, {w}) -> ({nseg}, {w})", backend,
+                         kern, plain, lib, nbytes, n * w, rows.dtype,
+                         calls[key], measured=key not in seen))
     return out
 
 
-def paper_entries(captured: dict) -> list[tuple]:
+def paper_entries(captured: dict, calls: collections.Counter) -> list:
     """Each captured K5-K7 call, as :func:`stage_entries`."""
     import torch
     from repro_torch.kernels import native, paper
@@ -664,24 +763,27 @@ def paper_entries(captured: dict) -> list[tuple]:
             def lib(vals=vals, ug=ug, vg=vg, wg=wg):
                 return torch.einsum("n,nr,nr,nr->n", vals, ug, vg, wg)
 
-        out.append((stem, native.KERNELS[stem].name, label, "ops",
-                    lambda kern=kern, a=args, k=kwargs: kern(*a, **k),
-                    lambda plain=plain, a=args: plain(*a),
-                    lib, nbytes, ops))
+        out.append(Entry(stem, native.KERNELS[stem].name, label, "ops",
+                         lambda kern=kern, a=args, k=kwargs: kern(*a, **k),
+                         lambda plain=plain, a=args: plain(*a),
+                         lib, nbytes, ops, args[1].dtype, calls[name]))
     return out
 
 
-def measure(entries: list[tuple], spec_name: str) -> list[dict]:
-    """Each entry: kernel vs plain on the same inputs, then kernel /
-    plain / library times and the bound."""
+def measure(entries: list, spec_name: str) -> list[dict]:
+    """Each measured entry: kernel vs plain on the same inputs, then
+    kernel / plain / library times and the bound."""
     import torch
     out = []
-    for stem, name, stage, where, kern, plain, lib, nbytes, ops in entries:
+    for e in entries:
+        if not e.measured:
+            continue
+        stem, name, stage, where, kern, plain, lib, nbytes, ops = e[:9]
         got, want = kern(), plain()
         torch.cuda.synchronize()
         err = check(f"{name} {stage} ({spec_name}, {where})", got, want)
         dtype = got.dtype
-        ops_per_s, peak_name = peak(stem, dtype)
+        ops_per_s, peak_name = peak(stem, e.dtype)
         del got, want
         ms = time_ms(kern)
         plain_ms = time_ms(plain)
@@ -716,12 +818,14 @@ class Driver:
         from repro_torch.kernels import native
         self.launches = {stem: 0 for stem in native.KERNELS}
         self.records: list[dict] = []
-        self.seen: set = set()         # combine shapes measured already
+        self.seen: set = set()         # combine calls measured already
 
     def drive(self, label: str, run, expect=(), measure_as=None):
-        """Run ``run`` as a user would (peak memory, time, trace), then
-        once counted with every kernel's inputs recorded.  Fails unless
-        each stem in ``expect`` launched in the counted run.  Returns
+        """Run ``run`` as a user would (peak memory, time), then once
+        counted with every kernel's inputs recorded, then traced (the
+        trace is held to the counted run's launches and their bounds).
+        Fails unless each stem in ``expect`` launched in the counted run,
+        and unless the recorded calls account for every launch.  Returns
         the counted run's result (a tuple in ``expect`` needs any one of
         its stems)."""
         import torch
@@ -732,15 +836,12 @@ class Driver:
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() / 2**30
         ms = time_ms(run)
-        profile_path(label, run, ms)
-        captured: dict = {}
-        combines: dict = {}
-        papers: dict = {}
-        lms: dict = {}
-        restore = recording_lowerings(captured)
-        restore_combines = recording_combines(combines)
-        restore_paper = recording_paper(papers)
-        restore_lm = recording_lm(lms)
+        sinks = {k: ({}, collections.Counter())
+                 for k in ("stage", "combine", "paper", "lm")}
+        restore = recording_lowerings(*sinks["stage"])
+        restore_combines = recording_combines(*sinks["combine"])
+        restore_paper = recording_paper(*sinks["paper"])
+        restore_lm = recording_lm(*sinks["lm"])
         native.reset_launch_counts()
         got = run()
         torch.cuda.synchronize()
@@ -763,14 +864,24 @@ class Driver:
             self.launches[stem] += n
         log(f"path {label}: {ms!r} ms, launches {counts}, "
             f"peak {peak:.2f} GiB")
-        fresh = {k: v for k, v in combines.items() if k not in self.seen}
-        self.seen.update(fresh)
-        name = measure_as or label
-        self.records += measure(stage_entries(captured)
-                                + combine_entries(fresh, label)
-                                + paper_entries(papers)
-                                + lm_entries(lms), name)
-        del captured, combines, fresh, papers, lms
+        entries = (stage_entries(*sinks["stage"])
+                   + combine_entries(*sinks["combine"], label, self.seen)
+                   + paper_entries(*sinks["paper"])
+                   + lm_entries(*sinks["lm"]))
+        self.seen.update(sinks["combine"][0])
+        need = {}
+        for stem, n in counts.items():
+            mine = [e for e in entries if e.stem == stem]
+            if sum(e.calls for e in mine) != n:
+                raise AssertionError(
+                    f"{label}: {n} launches of {stem}, but its recorded "
+                    f"calls account for {[e.calls for e in mine]}")
+            if n:
+                need[stem] = sum(e.calls * e.launch_bound_ms()
+                                 for e in mine)
+        profile_path(label, run, ms, need)
+        self.records += measure(entries, measure_as or label)
+        del sinks, entries
         return got
 
 
@@ -1008,7 +1119,7 @@ def main(argv=None) -> int:
             f"fused={tuned.fused} block={tuned.block} "
             f"path={[str(t) for t in tuned.path]}")
         replay = {"torch": ("combine",),
-                  "cuda": (("chain",) if tuned.fused
+                  "cuda": (("chain", "combine") if tuned.fused
                            else (("reduce", "product"),)),
                   "cuda-splitk": ("splitk", "combine")}[tuned.backend]
 
@@ -1043,18 +1154,18 @@ def main(argv=None) -> int:
                 return execute_plan(fused, arrays_, f)
 
             got = drv.drive(f"{name} {backend} fused", run,
-                            expect=("chain",) if backend == "cuda"
+                            expect=("chain", "combine") if backend == "cuda"
                             else ("splitk", "combine"), measure_as=name)
             check(f"path {name} {backend} fused vs torch", got, want)
             del got
         for key, entry in arrays_.cache.items():
             if key[0] == "chain" and key[-1] == block:
                 _, lvl0, chain_levels, _ = key
-                lay = entry[0]
+                lay, items = entry[0], entry[2].items
                 log(f"chain {name}: levels {lvl0} -> {list(chain_levels)}"
                     f", block {block}: P = {lay.padded_len} padded rows "
                     f"({lay.nblocks} blocks) for {arrays_.nfib[lvl0]} "
-                    f"fibers")
+                    f"fibers; nitems {items.nitems}, cap {items.cap}")
 
     for name in ("MTTKRP", "TTMc3"):
         fused_paths(name, specs[name], arrays, factors[name],

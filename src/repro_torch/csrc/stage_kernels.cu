@@ -28,8 +28,9 @@
 // to read each operand element once, with
 // neighbouring threads on neighbouring columns so that the reads of one
 // fiber row coalesce, and to write each output element once.  There are
-// no atomics: every reduction is owned by one thread block and runs in a
-// fixed order, so results are deterministic run to run.
+// no atomics: every reduction is owned by one thread block, or cut into
+// fixed parts that a second pass adds in a fixed order (K4, K3), so
+// results are deterministic run to run.
 //
 // Every entry point launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError() so that a refused launch is reported.
@@ -60,7 +61,7 @@ __device__ __forceinline__ T fiber_column(const T* __restrict__ a_row,
 // block's fibers by threadIdx.y, then a fixed shared-memory tree adds
 // them; the result is returned to every thread of the column.  The mask
 // zeroes pad slots (they gather a real fiber's values).  blockDim.y must
-// be a power of two.
+// be a power of two; with one thread a column there is nothing to add.
 template <typename T>
 __device__ T block_partial(const T* __restrict__ a, long long a_rs,
                            const T* __restrict__ b, long long b_rs,
@@ -78,6 +79,7 @@ __device__ T block_partial(const T* __restrict__ a, long long a_rs,
                                      b_idx, t0, t1);
     }
   }
+  if (blockDim.y == 1) return s;  // one thread a column: nothing to add
   const int me = threadIdx.y * blockDim.x + threadIdx.x;
   red[me] = s;
   __syncthreads();
@@ -446,26 +448,35 @@ __global__ void combine_kernel(const T* __restrict__ rows,
   out[i] = acc;
 }
 
-// K3: a fused chain of reducing stages, one thread block per outermost
-// segment s, walking the segment's contiguous block range in ascending
-// order (the TPU's sequential grid, restricted to one output row).  Per
-// block, as the TPU kernel does it:
-//   1. every inner level j whose segment opens here zeroes buffer j;
+// K3: a fused chain of reducing stages as fixed work items.  Each
+// outermost segment's contiguous block range is cut, on the host and from
+// the layout alone (ir.chain_items), into items of at most a fixed number
+// of consecutive blocks; one thread block runs one item, walking its
+// blocks in ascending order as the TPU's sequential grid walks them.  Per
+// block:
+//   1. every inner level j whose segment opens here, and every level at
+//      the item's first block, zeroes buffer j;
 //   2. the innermost stage's block partial is added to buffer 0;
-//   3. every inner level j whose segment closes here (inner levels
-//      first) flushes buffer j through link j's einsum — buffer j times
-//      the link operand's row at the block's level-j segment — into
-//      buffer j+1, or into the output row for the last link.
-// The buffers live in shared memory after the 256-element reduction
-// scratch; the output row is this block's own, so it is accumulated in
-// place.  A segment with no blocks leaves its row zero.
+//   3. every inner level j whose segment closes here, and every level at
+//      the item's last block (inner levels first), flushes buffer j
+//      through link j's einsum — buffer j times the link operand's row at
+//      the block's level-j segment — into buffer j+1, or into the item's
+//      partial row for the last link.
+// Every link is linear in the buffer it reads, so a segment cut by item
+// boundaries is flushed in parts whose sum is its whole flush.  The
+// partial rows (one per item, nothing shared between thread blocks, no
+// atomics) are then added per outermost segment in ascending item order
+// by the segment combine.  Why: a skewed pattern puts most of the blocks
+// in a few outermost segments, and one thread block per segment left
+// those few walking nearly all the work alone.
 //
-// levels is (3 * nlinks, nblocks) int32: per inner level j the block's
-// segment id (row 3j), opens flag (3j+1) and closes flag (3j+2).  desc
-// holds kLinkFields int64 per link: the link operand's row pointer and
-// row stride (0 = broadcast), its index table (out_ptr, a_idx, b_idx),
-// then the buffer it reads (width, offset) and the one it writes
-// (width, offset; offset -1 = the output row).
+// The buffers live in shared memory after the 256-element reduction
+// scratch.  levels is (3 * nlinks, nblocks) int32: per inner level j the
+// block's segment id (row 3j), opens flag (3j+1) and closes flag (3j+2).
+// desc holds kLinkFields int64 per link: the link operand's row pointer
+// and row stride (0 = broadcast), its index table (out_ptr, a_idx,
+// b_idx), then the buffer it reads (width, offset) and the one it writes
+// (width, offset; offset -1 = the partial row).
 constexpr int kLinkFields = 9;
 
 template <typename T>
@@ -478,20 +489,20 @@ __global__ void chain_kernel(const T* __restrict__ a, long long a_rs,
                              int nlinks, const int* __restrict__ levels,
                              long long nblocks,
                              const long long* __restrict__ desc,
-                             const long long* __restrict__ out_block_ptr,
-                             int out_w, T* __restrict__ out) {
+                             const long long* __restrict__ item_block,
+                             int out_w, T* __restrict__ partials) {
   extern __shared__ unsigned char smem[];
   T* red = reinterpret_cast<T*>(smem);
   T* bufs = red + blockDim.x * blockDim.y;
-  const long long s = blockIdx.x;
+  const long long item = blockIdx.x;
   const int nthreads = blockDim.x * blockDim.y;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  T* orow = out + s * out_w;
-  for (int o = tid; o < out_w; o += nthreads) orow[o] = T(0);
-  for (long long blk = out_block_ptr[s]; blk < out_block_ptr[s + 1];
-       ++blk) {
+  const long long first = item_block[item], last = item_block[item + 1] - 1;
+  T* prow = partials + item * out_w;
+  for (int o = tid; o < out_w; o += nthreads) prow[o] = T(0);
+  for (long long blk = first; blk <= last; ++blk) {
     for (int j = 0; j < nlinks; ++j) {
-      if (levels[(3LL * j + 1) * nblocks + blk]) {
+      if (blk == first || levels[(3LL * j + 1) * nblocks + blk]) {
         const long long* d = desc + j * kLinkFields;
         T* buf = bufs + d[6];
         for (int o = tid; o < (int)d[5]; o += nthreads) buf[o] = T(0);
@@ -506,7 +517,7 @@ __global__ void chain_kernel(const T* __restrict__ a, long long a_rs,
     }
     __syncthreads();
     for (int j = 0; j < nlinks; ++j) {
-      if (!levels[(3LL * j + 2) * nblocks + blk]) continue;
+      if (blk != last && !levels[(3LL * j + 2) * nblocks + blk]) continue;
       const long long* d = desc + j * kLinkFields;
       const T* row = reinterpret_cast<const T*>(d[0]) +
                      (long long)levels[3LL * j * nblocks + blk] * d[1];
@@ -514,7 +525,7 @@ __global__ void chain_kernel(const T* __restrict__ a, long long a_rs,
       const int* la = reinterpret_cast<const int*>(d[3]);
       const int* lb = reinterpret_cast<const int*>(d[4]);
       const T* src = bufs + d[6];
-      T* dst = d[8] >= 0 ? bufs + d[8] : orow;
+      T* dst = d[8] >= 0 ? bufs + d[8] : prow;
       for (int o = tid; o < (int)d[7]; o += nthreads)
         dst[o] += fiber_column(src, row, la, lb, lp[o], lp[o + 1]);
       __syncthreads();
@@ -527,8 +538,13 @@ __global__ void chain_kernel(const T* __restrict__ a, long long a_rs,
 // --------------------------------------------------------------------------
 // C entry points (bound with ctypes).  Launch geometry comes from the
 // caller: for K1, K3 and K4 tx threads over output columns (a power of
-// two), 256 / tx over fibers; for K2 the tile rows R, the table and
-// chunk modes and the shared bytes (stages.product_tiling).
+// two); K1 and K4 add 256 / tx over fibers, K3 only enough to fill one
+// warp (32 / tx; one over fibers from 32 columns up): a K3 thread block
+// walks one item's blocks in order with a barrier or three a block, so
+// small thread blocks, up to 32 of them on an SM, hide that walk's
+// latency where large ones would spend their threads waiting at the
+// barriers.  For K2 the tile rows R, the table and chunk modes and the
+// shared bytes (stages.product_tiling).
 // --------------------------------------------------------------------------
 #define SPTTN_ENTRY_POINTS(T, SUFFIX)                                          \
   extern "C" int spttn_reduce_##SUFFIX(                                        \
@@ -592,21 +608,21 @@ __global__ void chain_kernel(const T* __restrict__ a, long long a_rs,
       const void* a, long long a_rs, const void* b, long long b_rs,            \
       const void* mask, int block, const void* out_ptr, const void* a_idx,     \
       const void* b_idx, int stage_w, int tx, int nlinks, const void* levels,  \
-      long long nblocks, const void* desc, const void* out_block_ptr,          \
-      long long nseg_out, int out_w, int smem, void* out, void* stream) {      \
+      long long nblocks, const void* desc, const void* item_block,             \
+      long long nitems, int out_w, int smem, void* partials, void* stream) {   \
     if (smem > 48 * 1024) {                                                    \
       const cudaError_t e = cudaFuncSetAttribute(                              \
           spttn::chain_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, \
           smem);                                                               \
       if (e != cudaSuccess) return (int)e;                                     \
     }                                                                          \
-    const dim3 threads(tx, 256 / tx);                                          \
-    spttn::chain_kernel<T><<<(unsigned)nseg_out, threads, smem,                \
+    const dim3 threads(tx, tx < 32 ? 32 / tx : 1);                             \
+    spttn::chain_kernel<T><<<(unsigned)nitems, threads, smem,                  \
                       (cudaStream_t)stream>>>(                                 \
         (const T*)a, a_rs, (const T*)b, b_rs, (const float*)mask, block,       \
         (const int*)out_ptr, (const int*)a_idx, (const int*)b_idx, stage_w,    \
         nlinks, (const int*)levels, nblocks, (const long long*)desc,           \
-        (const long long*)out_block_ptr, out_w, (T*)out);                      \
+        (const long long*)item_block, out_w, (T*)partials);                    \
     return (int)cudaGetLastError();                                            \
   }                                                                            \
   extern "C" int spttn_combine_##SUFFIX(const void* rows, const void* ptr,     \

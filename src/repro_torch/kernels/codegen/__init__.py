@@ -16,10 +16,11 @@ from repro_torch.kernels.codegen.executor import (DEFAULT_BLOCK,
                                                   segment_profile,
                                                   stage_layout_key)
 from repro_torch.kernels.codegen.ir import (TILE_LANE, TILE_SUBLANE,
-                                            ChainLayout, ChainLink,
-                                            IndexTables, Lowering, Stage,
-                                            StageIR, StageOperand,
-                                            accumulator_type, get_lowering,
+                                            ChainItems, ChainLayout,
+                                            ChainLink, IndexTables,
+                                            Lowering, Stage, StageIR,
+                                            StageOperand, accumulator_type,
+                                            chain_items, get_lowering,
                                             index_tables, link_stage,
                                             lowering_targets,
                                             register_lowering)
@@ -34,9 +35,10 @@ __all__ = [
     "DEFAULT_BLOCK", "SegmentProfile", "StagePlanExecutor",
     "chain_block_arrays", "chain_layout_key", "fusible_chains",
     "layout_cache", "segment_profile", "stage_layout_key", "TILE_LANE",
-    "TILE_SUBLANE", "ChainLayout", "ChainLink", "IndexTables", "Lowering",
-    "Stage", "StageIR", "StageOperand", "accumulator_type", "get_lowering",
-    "index_tables", "link_stage", "lowering_targets", "register_lowering",
+    "TILE_SUBLANE", "ChainItems", "ChainLayout", "ChainLink",
+    "IndexTables", "Lowering", "Stage", "StageIR", "StageOperand",
+    "accumulator_type", "chain_items", "get_lowering", "index_tables",
+    "link_stage", "lowering_targets", "register_lowering",
     "HopperSplitKLowering", "splitk_partials", "HopperLowering",
     "run_fused_chain_stage", "run_product_stage", "run_reduce_stage",
 ]

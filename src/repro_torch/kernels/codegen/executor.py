@@ -24,8 +24,9 @@ static segment profile:
 
 Under ``strategy="fused"`` a provably safe chain of reducing terms
 (``fusible_chains``) is one ``chain`` lowering unit instead: the K3
-kernel on ``"hopper"``, split-K partials plus one batched einsum and
-one combine per link on ``"hopper-splitk"``.
+kernel (work items of a bounded number of blocks, their partial rows
+added by the combine) on ``"hopper"``, split-K partials plus one
+batched einsum and one combine per link on ``"hopper-splitk"``.
 
 The gathers that build each stage's operand rows stay PyTorch indexing,
 as they stay XLA in the JAX package.

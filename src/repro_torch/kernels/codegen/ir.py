@@ -12,7 +12,9 @@ into kernels for one target:
 * ``"hopper"`` (kernels/codegen/stages.py) — the segment-loop lowering:
   one thread block per output segment walks the segment's blocks in
   ascending order (K1), per-fiber products are K2, and a fused chain is
-  one thread block per outermost segment (K3).
+  one thread block per work item of at most a fixed number of blocks of
+  one outermost segment, whose partial rows the segment combine adds in
+  item order (K3).
 * ``"hopper-splitk"`` (kernels/codegen/lower_gpu.py) — split-K partials
   per fiber block (K4) plus a segment-combine pass; a chain adds one
   batched einsum and one combine per link.
@@ -25,6 +27,7 @@ remains comparable, and the Hopper lowerings ignore them.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -168,6 +171,68 @@ class ChainLayout:
     @property
     def padded_len(self) -> int:
         return self.mask.shape[0]
+
+    @functools.cached_property
+    def items(self) -> ChainItems:
+        """K3's work items at the default cap (:func:`chain_items` of
+        ``out_block_ptr``), built on first use and kept with the layout
+        (which the executor caches per pattern); only K3 reads them."""
+        return chain_items(self.out_block_ptr)
+
+
+#: A work item of K3 holds at least this many blocks (unless its
+#: outermost segment has fewer) ...
+ITEM_MIN_BLOCKS = 64
+#: ... and a layout is cut into about this many items at most.
+ITEM_TARGET = 32768
+
+
+def item_cap(nblocks: int) -> int:
+    """The most blocks a work item of a chain of ``nblocks`` blocks holds:
+    the larger of :data:`ITEM_MIN_BLOCKS` and ``nblocks /``
+    :data:`ITEM_TARGET`, rounded up.  A function of the layout alone, so
+    the cut (and with it every float sum's order) is the same on every
+    card."""
+    return max(ITEM_MIN_BLOCKS, -(-nblocks // ITEM_TARGET))
+
+
+@dataclasses.dataclass(frozen=True)
+class ChainItems:
+    """K3's work items: each outermost segment's block range cut into
+    runs of at most ``cap`` consecutive blocks, in order.
+
+    * ``item_block`` — int64 ``(nitems + 1,)``: item ``i`` is blocks
+      ``[item_block[i], item_block[i + 1])``;
+    * ``item_ptr`` — int64 ``(nseg_out + 1,)``: outermost segment ``s``
+      owns items ``[item_ptr[s], item_ptr[s + 1])`` (none for a segment
+      with no blocks)."""
+
+    item_block: torch.Tensor
+    item_ptr: torch.Tensor
+    cap: int
+
+    @property
+    def nitems(self) -> int:
+        return self.item_block.shape[0] - 1
+
+
+def chain_items(out_block_ptr: torch.Tensor,
+                cap: int | None = None) -> ChainItems:
+    """Cut the block ranges ``out_block_ptr`` (int64 ``(nseg_out + 1,)``)
+    into work items of at most ``cap`` blocks (default :func:`item_cap`),
+    with torch operations on ``out_block_ptr``'s device."""
+    dev = out_block_ptr.device
+    nblocks = int(out_block_ptr[-1])
+    cap = cap or item_cap(nblocks)
+    per_seg = (out_block_ptr.diff() + cap - 1) // cap
+    item_ptr = torch.cat([per_seg.new_zeros(1), per_seg.cumsum(0)])
+    nitems = int(item_ptr[-1])
+    seg = torch.repeat_interleave(
+        torch.arange(per_seg.shape[0], device=dev), per_seg,
+        output_size=nitems)
+    first = out_block_ptr[seg] + (torch.arange(nitems, device=dev)
+                                  - item_ptr[seg]) * cap
+    return ChainItems(torch.cat([first, out_block_ptr[-1:]]), item_ptr, cap)
 
 
 def link_stage(link: ChainLink) -> Stage:

@@ -25,15 +25,22 @@ kernels on the H100 (CUDA sources in ``csrc/stage_kernels.cu``):
   whole chain of reducing terms in one sequential grid: one VMEM
   crossing buffer per inner level, reset when that level's segment
   opens and flushed through the link's einsum into the next level when
-  it closes.  Here one thread block owns one outermost segment and walks
-  its contiguous block range in ascending order, keeping the crossing
-  buffers in shared memory and the output row in its own slice of the
-  output: the TPU's order of additions, no atomics.  Link operands are
+  it closes.  A skewed pattern puts most blocks in a few outermost
+  segments, so here each outermost segment's block range is cut into
+  work items of at most ``ChainItems.cap`` consecutive blocks (a cut
+  that depends on the layout alone, :func:`~repro_torch.kernels.codegen.
+  ir.chain_items`), and one thread block of one or two warps runs one
+  item in ascending block order with the crossing buffers in shared
+  memory.  An item resets every buffer at its first block and flushes
+  every level still open after its last, inner levels first, the last
+  link into the item's own partial row: every link is linear in its
+  buffer, so a segment flushed in parts sums to its whole flush.  The combine
+  (:func:`~repro_torch.kernels.segment.segment_combine`) then adds each
+  outermost segment's partial rows in ascending item order.  No
+  atomics, so the result is the same on every run.  Link operands are
   read by the block's segment id at their level (stride 0 when
-  broadcast).  A row with no blocks is written as zero (the TPU
-  kernel's ``row_written`` guard).  Hot spot, not solved here: there are
-  only as many thread blocks as outermost segments, and a skewed pattern
-  leaves a few of them walking most of the blocks.
+  broadcast).  A row with no blocks owns no item and comes out zero
+  (the TPU kernel's ``row_written`` guard).
 
 All three are bound by bytes: a stage does O(1) multiply-adds per
 element it reads.  In K1 and K3, threads of one fiber row take
@@ -61,7 +68,8 @@ from repro_torch.kernels.codegen.ir import (ChainLayout, ChainLink,
                                             index_table_arrays,
                                             load_operands,
                                             register_lowering)
-from repro_torch.kernels.segment import segment_combine_plain
+from repro_torch.kernels.segment import (segment_combine,
+                                         segment_combine_plain)
 
 
 def operand_rows(stage: Stage, padded, nrows: int, dtype):
@@ -307,7 +315,8 @@ def run_fused_chain_stage(ir: StageIR, layout: ChainLayout,
                           tables: IndexTables, link_tables, padded,
                           link_arrays, dtype) -> torch.Tensor:
     """K3: the whole reducing chain ``ir`` (innermost ``ir.stage``, then
-    ``ir.links`` outward) in one kernel -> ``(ir.nseg_out, last link's
+    ``ir.links`` outward) as one kernel over ``layout.items``, then the
+    combine of the items' partial rows -> ``(ir.nseg_out, last link's
     out flat)`` in ``dtype``, accumulated at :func:`accumulator_type`."""
     stage, links = ir.stage, ir.links
     P = layout.padded_len
@@ -321,13 +330,15 @@ def run_fused_chain_stage(ir: StageIR, layout: ChainLayout,
     dev = layout.mask.device
     nblocks = P // stage.block
     nlinks = len(links)
+    items = layout.items
     native.check_cuda_tensors(layout.levels, dtype=torch.int32)
-    native.check_cuda_tensors(layout.out_block_ptr, dtype=torch.int64)
+    native.check_cuda_tensors(items.item_block, items.item_ptr,
+                              dtype=torch.int64)
     if layout.levels.shape != (3 * nlinks, nblocks) or \
-            layout.out_block_ptr.shape != (ir.nseg_out + 1,):
+            items.item_ptr.shape != (ir.nseg_out + 1,):
         raise ValueError(f"chain {stage.expr}: layout levels "
-                         f"{tuple(layout.levels.shape)}, out_block_ptr "
-                         f"{tuple(layout.out_block_ptr.shape)} for "
+                         f"{tuple(layout.levels.shape)}, item_ptr "
+                         f"{tuple(items.item_ptr.shape)} for "
                          f"{nlinks} links, {nblocks} blocks, "
                          f"{ir.nseg_out} rows")
     # widths along the chain: stage -> buffer 0 -> link 0 -> buffer 1 ...
@@ -362,21 +373,22 @@ def run_fused_chain_stage(ir: StageIR, layout: ChainLayout,
                  widths[j + 1], dst]
     desc_t = torch.tensor(desc, dtype=torch.int64).to(dev)
     w_out = widths[-1]
-    out = torch.empty((ir.nseg_out, w_out), dtype=acc_t, device=dev)
+    partials = torch.empty((items.nitems, w_out), dtype=acc_t, device=dev)
     tx = native.column_threads(stage.out_flat_dim)
-    smem = (256 + int(offsets[-1])) * out.element_size()
+    smem = (256 + int(offsets[-1])) * partials.element_size()
     if smem > native.MAX_SHARED_BYTES:
         raise ValueError(f"chain {stage.expr}: crossing buffers of "
                          f"{smem} bytes exceed the shared memory of a "
                          f"thread block")
-    native.check_grid(ir.nseg_out, 1)
-    if ir.nseg_out * w_out:
+    native.check_grid(items.nitems, 1)
+    if items.nitems * w_out:
         native.launch("chain", acc_t, dev, rows[0], strides[0], rows[1],
                       strides[1], layout.mask, stage.block, tables.out_ptr,
                       tables.a_idx, tables.b_idx, stage.out_flat_dim, tx,
                       nlinks, layout.levels, nblocks, desc_t,
-                      layout.out_block_ptr, ir.nseg_out, w_out, smem, out)
-    return out.to(dtype)
+                      items.item_block, items.nitems, w_out, smem,
+                      partials)
+    return segment_combine(partials, items.item_ptr, ir.nseg_out).to(dtype)
 
 
 class HopperLowering(Lowering):

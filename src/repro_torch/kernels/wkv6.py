@@ -5,14 +5,18 @@
 ``o_t = r_t (S + diag(u) k_t v_tᵀ)``, then
 ``S <- diag(exp(-exp(w_t))) S + k_t v_tᵀ`` from ``S = 0``, with a float32
 state.  The CUDA kernel (``csrc/lm_kernels.cu``) gives each head one
-thread block that walks ``T`` in order: thread ``j`` keeps column ``j``
-of ``S`` in registers, and the block stages chunks of steps in shared
-memory.  Bound by bytes and by the serial walk; no chunk size constrains
-``T``.
+thread block that walks ``T`` in order: up to ``K = 128``, thread ``j``
+keeps column ``j`` of ``S`` in registers, and the block stages chunks of
+steps in shared memory.  A wider head's state columns would spill, so
+above 128 its value columns are split over ``ceil(K / kc)`` thread
+blocks, each keeping its ``kc`` columns of ``S`` in shared memory (the
+CUDA launcher picks ``kc`` and the staged steps that fit; neither
+changes the order of a sum).  Bound by bytes and by the serial walk; no
+chunk size constrains ``T``.
 
 On CPU tensors the wrapper runs the plain version
 (:func:`~repro_torch.kernels.ref.wkv6_ref`, stepping through time); on
-CUDA tensors it launches the kernel or raises.  ``K`` is at most 128.
+CUDA tensors it launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -20,12 +24,22 @@ import torch
 
 from repro_torch.kernels import native, ref
 
-MAX_K = 128
+#: Heads up to this width keep their state columns in registers.
+REGISTER_K = 128
 
 
 def wkv6_plain(r, k, v, w, u) -> torch.Tensor:
     """Plain version of K10: the time-stepped float32 recurrence."""
     return ref.wkv6_ref(r, k, v, w, u)
+
+
+def fits_a_thread_block(K: int) -> bool:
+    """Whether a head of ``K`` channels fits K10: up to
+    :data:`REGISTER_K` in registers; above, at least 32 state columns of
+    ``K`` floats beside one staged step (``r``, ``k`` and the decay over
+    ``K`` channels, ``u`` and one bonus sum) in a thread block's shared
+    memory, the least ``launch_wkv6_wide`` in the CUDA source asks for."""
+    return K <= REGISTER_K or 4 * (36 * K + 1) <= native.MAX_SHARED_BYTES
 
 
 def wkv6_kernel(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -39,8 +53,12 @@ def wkv6_kernel(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or u.shape != (r.shape[0], r.shape[2]):
         raise ValueError("wkv6: r/k/v/w (BH, T, K) and u (BH, K)")
     BH, T, K = r.shape
-    if K > MAX_K or T >= 2**31:
-        raise ValueError(f"wkv6: K = {K} above {MAX_K} or T = {T} too long")
+    if T >= 2**31:
+        raise ValueError(f"wkv6: T = {T} exceeds the kernel's int steps")
+    if not fits_a_thread_block(K):
+        raise ValueError(f"wkv6: 32 state columns of a head of K = {K} "
+                         f"channels exceed the shared memory of a thread "
+                         f"block ({native.MAX_SHARED_BYTES} bytes)")
     out = torch.empty_like(r)
     native.check_grid(BH, 1)
     if BH * T * K:

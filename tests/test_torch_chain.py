@@ -8,8 +8,11 @@ TPU target in interpret mode and on the ``pallas-gpu`` target, for the
 including patterns with empty mode-0 slices and with no nonzeros.  The
 emitted chain IR and the chain layout are held equal field by field, and
 a Python walk of the CUDA kernel's algorithm over the layout it reads
-(:class:`~repro_torch.kernels.codegen.ir.ChainLayout`) is held to the
-plain version, an outer row with no blocks included.
+(:class:`~repro_torch.kernels.codegen.ir.ChainLayout`: work items of a
+bounded number of blocks, their partial rows added in item order) is
+held to the plain version and, with items as small as one block so that
+cuts fall inside every level's segments, to the reference, an outer row
+with no blocks included.  The item table covers every block once.
 
 Tolerance: float32 ``|port - ref| <= 1e-5 * max(1, max|ref|)``, float64
 ``1e-12`` relative (under ``jax.enable_x64``).
@@ -37,9 +40,11 @@ from repro_torch.core import planner as tplanner  # noqa: E402
 from repro_torch.core import spec as TS  # noqa: E402
 from repro_torch.kernels.codegen import StagePlanExecutor  # noqa: E402
 from repro_torch.kernels.codegen import stages  # noqa: E402
-from repro_torch.kernels.codegen.ir import ChainLayout  # noqa: E402
+from repro_torch.kernels.codegen.ir import (  # noqa: E402
+    ITEM_MIN_BLOCKS, ITEM_TARGET, ChainLayout, chain_items, item_cap)
 from repro_torch.sparse import build_csf  # noqa: E402
 from repro_torch.sparse.coo import from_coords  # noqa: E402
+from tests.test_torch_cuda import _with_empty_outer_row  # noqa: E402
 
 CHAINS = {"mttkrp": ("mttkrp", (6, 7, 8, 4), 0.3),
           "ttmc3": ("ttmc3", (6, 7, 8, 4, 3), 0.3),
@@ -174,17 +179,24 @@ def test_chain_layout_equals_reference(kernel):
         np.searchsorted(segs[-1], np.arange(nout + 1)))
 
 
-def _kernel_walk(ir, layout, tables, link_tables, padded, link_arrays):
-    """K3's algorithm in Python, as ``chain_kernel`` runs it: per
-    outermost segment, per block in ascending order, resets of the levels
-    that open, the block partial into buffer 0, then the flushes of the
-    levels that close, each through its link's index table."""
+def _kernel_walk(ir, layout, tables, link_tables, padded, link_arrays,
+                 items=None):
+    """K3's algorithm in Python, as ``chain_kernel`` and the combine run
+    it over ``items`` (default ``layout.items``): per work item, per block
+    in ascending order, resets of the levels that open (of every level at
+    the item's first block), the block partial into buffer 0, then the
+    flushes of the levels that close (of every level at the item's last
+    block), each through its link's index table, the last link's into
+    the item's partial row; then each outermost segment's partial rows
+    added in ascending item order."""
     stage, links = ir.stage, ir.links
+    items = items or layout.items
     dt = torch.float64
     rows = [p.to(dt) for p in padded]
     mask = layout.mask.to(dt)
     lv = layout.levels
-    out = torch.zeros((ir.nseg_out, links[-1].out_flat_dim), dtype=dt)
+    w_out = links[-1].out_flat_dim
+    partials = torch.zeros((items.nitems, w_out), dtype=dt)
 
     def columns(tab, a, b):
         # out column o = sum over the table's terms of a[a_idx] * b[b_idx]
@@ -195,20 +207,21 @@ def _kernel_walk(ir, layout, tables, link_tables, padded, link_arrays):
                           dtype=dt)
         return res.index_add_(prods.ndim - 1, seg, prods)
 
-    for s in range(ir.nseg_out):
+    bounds = items.item_block.tolist()
+    for i in range(items.nitems):
+        first, last = bounds[i], bounds[i + 1] - 1
         bufs = [torch.zeros(stage.out_flat_dim, dtype=dt)] + \
             [torch.zeros(link.out_flat_dim, dtype=dt) for link in links[:-1]]
-        lo, hi = layout.out_block_ptr[s:s + 2].tolist()
-        for blk in range(lo, hi):
+        for blk in range(first, last + 1):
             for j in range(len(links)):
-                if lv[3 * j + 1, blk]:
+                if blk == first or lv[3 * j + 1, blk]:
                     bufs[j].zero_()
             z = slice(blk * stage.block, (blk + 1) * stage.block)
             a, b = (r[z] if op.fiber else r[:1].expand(stage.block, -1)
                     for r, op in zip(rows, stage.operands))
             bufs[0] += (columns(tables, a, b) * mask[z, None]).sum(0)
             for j, link in enumerate(links):
-                if not lv[3 * j + 2, blk]:
+                if blk != last and not lv[3 * j + 2, blk]:
                     continue
                 other = link_arrays[j].to(dt)
                 row = other[lv[3 * j, blk]] if link.operands[1].fiber \
@@ -217,7 +230,12 @@ def _kernel_walk(ir, layout, tables, link_tables, padded, link_arrays):
                 if j + 1 < len(links):
                     bufs[j + 1] += flush
                 else:
-                    out[s] += flush
+                    partials[i] += flush
+    out = torch.zeros((ir.nseg_out, w_out), dtype=dt)
+    ptr = items.item_ptr.tolist()
+    for s in range(ir.nseg_out):
+        for i in range(ptr[s], ptr[s + 1]):
+            out[s] += partials[i]
     return out
 
 
@@ -247,16 +265,7 @@ def test_kernel_walk_matches_plain_with_an_empty_outer_row(kernel,
                         link_arrays), plain)
 
     k = ir.nseg_out // 2
-
-    def widen(ptr):
-        return torch.cat([ptr[:k + 1], ptr[k:]])
-
-    layout2 = ChainLayout(mask=layout.mask, levels=layout.levels,
-                          out_block_ptr=widen(layout.out_block_ptr),
-                          block_ptr=layout.block_ptr,
-                          parent_ptrs=layout.parent_ptrs[:-1]
-                          + (widen(layout.parent_ptrs[-1]),))
-    ir2 = dataclasses.replace(ir, nseg_out=ir.nseg_out + 1)
+    ir2, layout2 = _with_empty_outer_row(ir, layout, k)
     walked = _kernel_walk(ir2, layout2, tables, link_tables, padded,
                           link_arrays)
     plain2 = stages.run_fused_chain_stage_plain(ir2, layout2, padded,
@@ -264,6 +273,108 @@ def test_kernel_walk_matches_plain_with_an_empty_outer_row(kernel,
     assert not walked[k].any() and not plain2[k].any()
     _close(walked, plain2)
     _close(torch.cat([plain2[:k], plain2[k + 1:]]), plain)
+
+
+@pytest.mark.parametrize("cap", [1, 2])
+@pytest.mark.parametrize("kernel", ["mttkrp", "ttmc4"])
+def test_item_walk_matches_reference_with_cuts_inside_segments(
+        kernel, cap, monkeypatch):
+    """The work-item walk with items of at most ``cap`` blocks, at block
+    2 so that item cuts fall inside the segments of every inner level,
+    stands in for K3 in the port's fused executor and gives the
+    reference's fused result (``PallasPlanExecutor``, TPU target, in
+    interpret mode); with an outermost row that owns no block inserted,
+    that row is zero and the rest are the plain version's."""
+    jspec, tspec, jc, tc, jp, tp = _case(kernel, "random")
+    factors = _factors(jspec)
+    calls = []
+
+    def walk(ir, layout, tables, link_tables, padded, link_arrays, dtype):
+        calls.append((ir, layout, tables, link_tables, padded, link_arrays,
+                      dtype))
+        items = chain_items(layout.out_block_ptr, cap)
+        return _kernel_walk(ir, layout, tables, link_tables, padded,
+                            link_arrays, items).to(dtype)
+
+    monkeypatch.setattr(stages, "run_fused_chain_stage", walk)
+    tx = StagePlanExecutor(tspec, tp.path, tp.order, block=2,
+                           strategy="fused")
+    out = tx(tex.CSFArrays.from_csf(tc, device="cpu"), factors)
+    jx = PallasPlanExecutor(jspec, jp.path, jp.order, block=2,
+                            interpret=True, strategy="fused", target="tpu")
+    _close(out, np.asarray(jx(jex.CSFArrays.from_csf(jc), factors)))
+
+    ir, layout, tables, link_tables, padded, link_arrays, dt = calls[0]
+    items = chain_items(layout.out_block_ptr, cap)
+    starts = items.item_block[:-1]
+    for j in range(len(ir.links)):
+        # some item starts where level j's segment does not open
+        assert not bool(layout.levels[3 * j + 1, starts].all()), j
+    k = ir.nseg_out // 2
+    ir2, layout2 = _with_empty_outer_row(ir, layout, k)
+    walked = _kernel_walk(ir2, layout2, tables, link_tables, padded,
+                          link_arrays, chain_items(layout2.out_block_ptr, cap))
+    plain2 = stages.run_fused_chain_stage_plain(ir2, layout2, padded,
+                                                link_arrays, dt)
+    assert not walked[k].any()
+    _close(walked, plain2)
+
+
+@pytest.mark.parametrize("cap", [1, 2, 3, 64, None])
+def test_chain_items_cover_every_block_once_in_order(cap):
+    """The item table covers every block exactly once, in order, never
+    crosses an outermost segment, holds at most ``cap`` blocks an item
+    and as few items as that allows; a segment with no blocks owns no
+    item.  The default cap depends on the block count alone."""
+    rng = np.random.default_rng(7)
+    counts = rng.integers(0, 300, 40)
+    counts[[0, 5, 6, 39]] = 0
+    counts[3] = 5000                      # one heavy segment
+    out_block_ptr = torch.from_numpy(np.concatenate([[0], np.cumsum(
+        counts)]).astype(np.int64))
+    nblocks = int(counts.sum())
+    items = chain_items(out_block_ptr, cap)
+    want_cap = cap or item_cap(nblocks)
+    assert items.cap == want_cap
+    ib, ip = items.item_block.tolist(), items.item_ptr.tolist()
+    assert ib[0] == 0 and ib[-1] == nblocks
+    assert all(x < y for x, y in zip(ib, ib[1:]))
+    assert ip[0] == 0 and ip[-1] == items.nitems
+    for s, n in enumerate(counts):
+        lo, hi = ip[s], ip[s + 1]
+        assert hi - lo == -(-int(n) // want_cap)
+        if n:
+            assert ib[lo] == out_block_ptr[s] and \
+                ib[hi] == out_block_ptr[s + 1]
+        assert all(ib[i + 1] - ib[i] <= want_cap for i in range(lo, hi))
+    assert item_cap(100) == ITEM_MIN_BLOCKS
+    assert item_cap(5_300_000) == -(-5_300_000 // ITEM_TARGET)
+
+
+def test_chain_layout_caches_its_items():
+    """The chain layout keeps the fields that mirror the reference's
+    block layout; its item table is built on first use, at the default
+    cap, and kept with the layout the executor caches.  A run on the CPU
+    (the plain version) builds none."""
+    assert [f.name for f in dataclasses.fields(ChainLayout)] == [
+        "mask", "levels", "out_block_ptr", "block_ptr", "parent_ptrs"]
+    _, tspec, _, tc, _, tp = _case("mttkrp", "random")
+    tx = StagePlanExecutor(tspec, tp.path, tp.order, block=8,
+                           strategy="fused")
+    arrays = tex.CSFArrays.from_csf(tc, device="cpu")
+    tx(arrays, _factors(tspec))
+    (_, _, chain), = [v for k, v in arrays.cache.items()
+                      if isinstance(k, tuple) and k[0] == "chain"]
+    assert "items" not in vars(chain)
+    nblocks = int(chain.out_block_ptr[-1])
+    assert chain.items.cap == item_cap(nblocks)
+    want = chain_items(chain.out_block_ptr)
+    assert torch.equal(chain.items.item_block, want.item_block)
+    assert torch.equal(chain.items.item_ptr, want.item_ptr)
+    assert chain.items is chain.items
+    tx(arrays, _factors(tspec))
+    assert [v for k, v in arrays.cache.items()
+            if isinstance(k, tuple) and k[0] == "chain"][0][2] is chain
 
 
 def test_fused_plan_replays_through_execute_plan():

@@ -1,10 +1,11 @@
 """The port's CUDA kernels on the card: each against its plain version
 (K1, K2, K4 and the combine; K2's scalar path, global tables and
 float64 table-order sums; K3, the fused chain, on 2- and 3-level
-chains; K5-K7, the paper kernels; K8-K11, the LM kernels, in float32
-and bfloat16 at sizes no tile or chunk divides, and K8's bf16 tensor-
-core path at full tiles, on an identity weight and on a misaligned
-base).
+chains over work items from one block to the default cut, the same
+bits run to run; K5-K7, the paper kernels; K8-K11, the LM kernels, in
+float32 and bfloat16 at sizes no tile or chunk divides, K8's bf16
+tensor-core path at full tiles, on an identity weight and on a
+misaligned base, and K10 at heads wider than 128).
 
 These tests need an NVIDIA GPU and ``nvcc`` (the kernels are built from
 ``src/repro_torch/csrc`` at first use), so they carry the ``cuda``
@@ -22,6 +23,8 @@ another order can land a value on the other side of a bf16 rounding
 boundary: one bf16 ulp is at most 2**-7 of the value; K9's plain
 version rounds ``p`` after another running maximum).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -33,7 +36,6 @@ from repro_torch.core.executor import (CSFArrays,  # noqa: E402
 from repro_torch.core.planner import plan  # noqa: E402
 from repro_torch.kernels import (grouped_matmul, local_attn,  # noqa: E402
                                  native, ops, paper, rglru, wkv6)
-from repro_torch.kernels.codegen.ir import ChainLayout  # noqa: E402
 from repro_torch.kernels.codegen import ir  # noqa: E402
 from repro_torch.kernels.codegen import lower_gpu, stages  # noqa: E402
 from repro_torch.kernels.segment import (segment_combine,  # noqa: E402
@@ -362,24 +364,13 @@ def test_chain_kernel_matches_plain(cuda, monkeypatch, spec, shape, dtype):
 def test_chain_kernel_zeroes_an_outer_row_with_no_blocks(cuda,
                                                          monkeypatch):
     """An outermost segment that owns no block (a row the layout never
-    reaches) comes back exactly zero, as the TPU kernel's ``row_written``
-    guard makes it."""
-    import dataclasses
+    reaches, so no work item) comes back exactly zero, as the TPU
+    kernel's ``row_written`` guard makes it."""
     _, calls, *_ = _chain_call(monkeypatch, S.mttkrp(30, 20, 25, 8),
                                (30, 20, 25), torch.float32, cuda)
     ir_, layout, tables, link_tables, padded, link_arrays, dt = calls[0]
     k = ir_.nseg_out // 2                  # insert an empty row before k
-
-    def widen(ptr):
-        return torch.cat([ptr[:k + 1], ptr[k:]])
-
-    layout2 = ChainLayout(
-        mask=layout.mask, levels=layout.levels,
-        out_block_ptr=widen(layout.out_block_ptr),
-        block_ptr=layout.block_ptr,
-        parent_ptrs=layout.parent_ptrs[:-1] +
-        (widen(layout.parent_ptrs[-1]),))
-    ir2 = dataclasses.replace(ir_, nseg_out=ir_.nseg_out + 1)
+    ir2, layout2 = _with_empty_outer_row(ir_, layout, k)
     got = stages.run_fused_chain_stage(ir2, layout2, tables, link_tables,
                                        padded, link_arrays, dt)
     want = stages.run_fused_chain_stage_plain(ir2, layout2, padded,
@@ -387,6 +378,74 @@ def test_chain_kernel_zeroes_an_outer_row_with_no_blocks(cuda,
     torch.cuda.synchronize()
     assert torch.equal(got[k].cpu(), torch.zeros_like(got[k].cpu()))
     _close(got, want, torch.float32)
+
+
+def _with_empty_outer_row(ir_, layout, k):
+    """``ir_`` and ``layout`` with an outermost row that owns no block
+    inserted before row ``k`` (shared with tests/test_torch_chain.py)."""
+    def widen(ptr):
+        return torch.cat([ptr[:k + 1], ptr[k:]])
+
+    layout2 = dataclasses.replace(
+        layout, out_block_ptr=widen(layout.out_block_ptr),
+        parent_ptrs=layout.parent_ptrs[:-1] + (widen(layout.parent_ptrs[-1]),))
+    return dataclasses.replace(ir_, nseg_out=ir_.nseg_out + 1), layout2
+
+
+def _with_cap(layout, cap):
+    """A copy of ``layout`` whose K3 items hold at most ``cap`` blocks
+    (``None``: the default cut), set where ``ChainLayout.items`` keeps
+    the items it builds."""
+    layout2 = dataclasses.replace(layout)
+    vars(layout2)["items"] = ir.chain_items(layout2.out_block_ptr, cap)
+    return layout2
+
+
+@pytest.mark.parametrize("cap", [1, 2, None])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("spec,shape", CHAINS)
+def test_chain_kernel_items_match_plain(cuda, monkeypatch, spec, shape,
+                                        dtype, cap):
+    """K3 over work items of at most ``cap`` blocks (1 and 2: cuts inside
+    the segments of every inner level; None: the default cut), each
+    item's partial row combined in item order, against the plain
+    version, which walks level by level; with an outer row that owns no
+    block inserted, that row is zero."""
+    _, calls, *_ = _chain_call(monkeypatch, spec, shape, dtype, cuda)
+    ir_, layout, tables, link_tables, padded, link_arrays, dt = calls[0]
+    small = _with_cap(layout, cap)
+    if cap:
+        assert small.items.nitems > layout.items.nitems
+    native.reset_launch_counts()
+    got = stages.run_fused_chain_stage(ir_, small, tables, link_tables,
+                                       padded, link_arrays, dt)
+    torch.cuda.synchronize()
+    counts = native.launch_counts()
+    assert counts["chain"] == 1 and counts["combine"] == 1
+    want = stages.run_fused_chain_stage_plain(ir_, layout, padded,
+                                              link_arrays, dt)
+    _close(got, want, dtype)
+    k = ir_.nseg_out // 2
+    ir2, layout2 = _with_empty_outer_row(ir_, layout, k)
+    got2 = stages.run_fused_chain_stage(ir2, _with_cap(layout2, cap), tables,
+                                        link_tables, padded, link_arrays, dt)
+    torch.cuda.synchronize()
+    assert not bool(got2[k].any())
+    _close(torch.cat([got2[:k], got2[k + 1:]]), want, dtype)
+
+
+@pytest.mark.parametrize("spec,shape", CHAINS)
+def test_chain_kernel_is_bit_identical_run_to_run(cuda, monkeypatch, spec,
+                                                  shape):
+    """No atomics and a fixed combine order: two launches on the same
+    inputs give the same bits."""
+    _, calls, *_ = _chain_call(monkeypatch, spec, shape, torch.float32,
+                               cuda)
+    args = calls[0]
+    first = stages.run_fused_chain_stage(*args)
+    second = stages.run_fused_chain_stage(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 # --------------------------------------------------------------------- #
@@ -512,7 +571,11 @@ def _wkv6_inputs(gen, BH, T, K, dtype, dev):
 
 
 @pytest.mark.parametrize("BH,T,K", [(3, 1, 64), (2, 37, 64), (2, 70, 16),
-                                    (1, 33, 100)])
+                                    (1, 33, 100),
+                                    # wider than 128: the state in shared
+                                    # memory, columns split over blocks
+                                    (2, 37, 192), (1, 40, 256),
+                                    (1, 20, 500)])
 @pytest.mark.parametrize("dtype", LM_DTYPES)
 def test_wkv6_kernel_matches_plain(cuda, BH, T, K, dtype):
     gen = torch.Generator(device=cuda).manual_seed(2)
@@ -576,3 +639,6 @@ def test_lm_wrappers_reject_what_their_kernels_lack(cuda):
     big = torch.zeros((1, 8, 257), device=cuda)
     with pytest.raises(ValueError, match="head size"):
         local_attn.local_attn_kernel(big, big, big, 4)
+    wide = torch.zeros((1, 2, 1615), device=cuda)
+    with pytest.raises(ValueError, match="32 state columns"):
+        wkv6.wkv6_kernel(wide, wide, wide, wide, wide[:, 0].contiguous())

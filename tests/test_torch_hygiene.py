@@ -217,6 +217,15 @@ def test_product_kernel_shared_limit_is_the_wrappers():
     assert m and int(m.group(1)) == native.MAX_SHARED_BYTES
 
 
+def test_wkv6_wide_shared_limit_is_the_wrappers():
+    """K10's launcher tiles a head wider than 128 channels within
+    ``MAX_SHARED_BYTES``, the limit ``wkv6.fits_a_thread_block`` checks."""
+    path = os.path.join(REPO, native.KERNELS["wkv6"].source)
+    with open(path, encoding="utf-8") as f:
+        m = re.search(r"constexpr int kWkv6MaxSmem = (\d+);", f.read())
+    assert m and int(m.group(1)) == native.MAX_SHARED_BYTES
+
+
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
     script = os.path.join(REPO, "chip_smoke.py")
     lone = tmp_path / "chip_smoke.py"

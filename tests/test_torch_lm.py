@@ -34,7 +34,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro import configs as jconfigs  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro_torch import configs  # noqa: E402
-from repro_torch.kernels import native, ops  # noqa: E402
+from repro_torch.kernels import native, ops, wkv6  # noqa: E402
 from repro_torch.kernels.local_attn import local_attn_plain  # noqa: E402
 
 BF16 = np.dtype("bfloat16")
@@ -176,6 +176,28 @@ def test_wkv6_matches_reference(B, T, H, K, chunk):
                           chunk=chunk), 1e-3)
     _close(ops.wkv6(*tin, use_kernel=False),
            jops.wkv6(*jin, use_pallas=False), 1e-3)
+
+
+def test_wkv6_wide_head_matches_reference():
+    """A head of 256 channels (twice what a thread's registers hold on
+    the card) through ``ops.wkv6`` against the Pallas kernel in
+    interpret mode and the oracle."""
+    jin, tin = _wkv6_inputs(1, 8, 2, 256, seed=5)
+    got = ops.wkv6(*tin)
+    _close(got, jops.wkv6(*jin, use_pallas=True, interpret=True, chunk=8),
+           1e-3)
+    _close(got, jops.wkv6(*jin, use_pallas=False), 1e-3)
+
+
+@pytest.mark.parametrize("K,fits", [(128, True), (129, True),
+                                    (256, True), (1614, True),
+                                    (1615, False)])
+def test_wkv6_tiling_fits_a_thread_block(K, fits):
+    """Above 128 channels K10 keeps at least 32 state columns per thread
+    block in shared memory beside one staged step: only a head too wide
+    even for that is refused, and there is no other limit on ``K``."""
+    assert wkv6.fits_a_thread_block(K) is fits
+    assert not hasattr(wkv6, "MAX_K")
 
 
 @pytest.mark.parametrize("T", [1, 13])
