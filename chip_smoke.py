@@ -10,7 +10,8 @@ any failure exits non-zero):
 
 1. Build the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
    source, all started together; sm_90a); a ``PTXAS`` line per kernel
-   gives its registers, spills and static shared memory.
+   gives its registers, spills and static shared memory (a spill in a
+   kernel of K10 or K11 fails the run).
 2. A small tensor (60 x 50 x 40, density 0.01) through every engine and
    strategy (the fused chain included), against the port's numpy
    Algorithm-2 ``reference_execute``.
@@ -116,6 +117,9 @@ TRACE_NAMES = {stem: f"spttn::{stem}_kernel<" for stem in (
 # in bf16); the LM wrappers' modules
 MATMUL_STEMS = ("grouped_matmul", "local_attn")
 LM_STEMS = ("grouped_matmul", "local_attn", "wkv6", "rglru")
+# the recurrences, whose every kernel keeps its state in registers or
+# shared memory: a spill fails the build phase
+NO_SPILL_STEMS = ("wkv6", "rglru")
 
 
 def log(*args) -> None:
@@ -981,8 +985,15 @@ def main(argv=None) -> int:
     path, secs, report = native.build()
     native.load_library()
     log(f"build: {secs:.1f} s -> {os.path.relpath(path, REPO)}")
+    spilled = []
     for rec in ptxas_kernels(report):
         log("PTXAS " + json.dumps(rec))
+        if rec["stem"] in NO_SPILL_STEMS and (rec.get("spill_stores")
+                                             or rec.get("spill_loads")):
+            spilled.append(rec["kernel"])
+    if spilled:
+        raise AssertionError(f"kernels that must keep their state in "
+                             f"registers spill: {spilled}")
     phase_done("1 build")
 
     rng = np.random.default_rng(args.seed)

@@ -4,10 +4,14 @@
 ``rglru_pallas`` on ``x, a (B, T, D)``:
 ``h_t = a_t h_{t-1} + sqrt(clip(1 - a_t², 0, 1)) x_t`` from ``h = 0``,
 with a float32 state and ``h`` in ``x.dtype``.  The CUDA kernel
-(``csrc/lm_kernels.cu``) gives each (batch, channel) one thread that
-walks ``T`` in order, a warp reading 32 neighbouring channels of a step.
-Bound by bytes (three elements moved per step for about eight
-operations); no chunk size constrains ``T``.
+(``csrc/lm_kernels.cu``) gives each (batch, tile of :data:`TILE`
+channels) one thread block and each channel one thread that walks ``T``
+in order.  The steps stream through a ring of :data:`STAGES`
+shared-memory stages of :func:`stage_steps` steps of the tile's ``x``
+and ``a``, the next ones in flight while one is walked.  Each operation
+rounds once, in the plain version's order, so the kernel gives the
+plain version's bits.  Bound by bytes (three elements moved per step
+for about eight operations); no chunk size constrains ``T``.
 
 On CPU tensors the wrapper runs the plain version
 (:func:`~repro_torch.kernels.ref.rglru_ref`); on CUDA tensors it launches
@@ -18,6 +22,18 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import native, ref
+
+#: Channels of a thread block, one thread each.
+TILE = 128
+#: Shared-memory stages of the ring, and the bytes of one (x and a).
+STAGES = 6
+STAGE_BYTES = 16384
+
+
+def stage_steps(dtype: torch.dtype) -> int:
+    """Steps of one stage of the ring in ``dtype``: 32 in bf16, 16 in
+    float32."""
+    return STAGE_BYTES // (2 * TILE * dtype.itemsize)
 
 
 def rglru_plain(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
@@ -38,7 +54,7 @@ def rglru_kernel(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     if max(T, D) >= 2**31:
         raise ValueError("rglru: T and D must be below 2**31")
     out = torch.empty_like(x)
-    native.check_grid(-(-(B * D) // 256), 1)
+    native.check_grid(B * -(-D // TILE), 1)
     if B * T * D:
         native.launch("rglru", x.dtype, x.device, x, a, B, T, D, out)
     return out

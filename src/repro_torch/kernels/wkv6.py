@@ -5,13 +5,21 @@
 ``o_t = r_t (S + diag(u) k_t v_tᵀ)``, then
 ``S <- diag(exp(-exp(w_t))) S + k_t v_tᵀ`` from ``S = 0``, with a float32
 state.  The CUDA kernel (``csrc/lm_kernels.cu``) gives each head one
-thread block that walks ``T`` in order: up to ``K = 128``, thread ``j``
-keeps column ``j`` of ``S`` in registers, and the block stages chunks of
-steps in shared memory.  A wider head's state columns would spill, so
+thread block that walks ``T`` in order.  Up to ``K = 128`` the rows of
+the state are split into :data:`GROUPS` groups: thread ``(g, q)`` keeps
+rows ``[g R, (g + 1) R)`` (``R = width / GROUPS`` at the
+:func:`register_width` of ``K``) of four neighbouring columns in
+registers, walks a chunk's steps with no barrier between them, and
+writes its partials ``Σ_{i∈g} r_i S_ij`` of each step to shared memory;
+after the chunk, ``o_j = bonus · v_j`` plus the groups' partials added
+as a balanced tree in a fixed order, so the result is the same bits on
+every run.  A chunk is :func:`chunk_steps` steps; the next chunk's
+tiles of ``r``, ``k``, ``v`` and ``w`` are copied into a two-stage ring
+while one is walked.  A wider head's state columns would spill, so
 above 128 its value columns are split over ``ceil(K / kc)`` thread
 blocks, each keeping its ``kc`` columns of ``S`` in shared memory (the
 CUDA launcher picks ``kc`` and the staged steps that fit; neither
-changes the order of a sum).  Bound by bytes and by the serial walk; no
+changes the order of a sum).  Bound by operations (``5 K²`` a step); no
 chunk size constrains ``T``.
 
 On CPU tensors the wrapper runs the plain version
@@ -26,6 +34,25 @@ from repro_torch.kernels import native, ref
 
 #: Heads up to this width keep their state columns in registers.
 REGISTER_K = 128
+#: Groups of the state's rows (up to :data:`REGISTER_K` channels), whose
+#: partial sums the output adds as a balanced tree.
+GROUPS = 8
+#: Elements of one input's staged chunk: ``chunk_steps(K)`` steps of
+#: ``register_width(K)`` channels.
+CHUNK_ELEMENTS = 1024
+
+
+def register_width(K: int) -> int:
+    """The head width (32, 64 or 128) of the kernel that takes ``K``
+    channels in registers; rows and columns from ``K`` up hold zeros."""
+    if not 0 < K <= REGISTER_K:
+        raise ValueError(f"wkv6: no register kernel for K = {K}")
+    return max(32, 1 << (K - 1).bit_length())
+
+
+def chunk_steps(K: int) -> int:
+    """Steps of a chunk of the register kernel for ``K`` channels."""
+    return CHUNK_ELEMENTS // register_width(K)
 
 
 def wkv6_plain(r, k, v, w, u) -> torch.Tensor:

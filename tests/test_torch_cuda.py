@@ -5,7 +5,9 @@ chains over work items from one block to the default cut, the same
 bits run to run; K5-K7, the paper kernels; K8-K11, the LM kernels, in
 float32 and bfloat16 at sizes no tile or chunk divides, K8's bf16
 tensor-core path at full tiles, on an identity weight and on a
-misaligned base, and K10 at heads wider than 128).
+misaligned base; K10 at heads wider than 128, at the edges of its ring
+of chunks, on unaligned tiles and the same bits run to run; K11 at the
+edges of its ring and with the plain version's bits).
 
 These tests need an NVIDIA GPU and ``nvcc`` (the kernels are built from
 ``src/repro_torch/csrc`` at first use), so they carry the ``cuda``
@@ -585,16 +587,128 @@ def test_wkv6_kernel_matches_plain(cuda, BH, T, K, dtype):
     _close(got, wkv6.wkv6_plain(*args), dtype)
 
 
+def _edge_steps(L, edge):
+    """A length at an edge of a ring of ``L``-step chunks."""
+    return {"1": 1, "L-1": L - 1, "L+1": L + 1, "3L+5": 3 * L + 5}[edge]
+
+
+EDGES = ["1", "L-1", "L+1", "3L+5"]
+
+
+@pytest.mark.parametrize("edge", EDGES)
+@pytest.mark.parametrize("BH,K", [(1, 64), (2, 16), (2, 100)])
+@pytest.mark.parametrize("dtype", LM_DTYPES)
+def test_wkv6_kernel_at_the_ring_edges(cuda, BH, K, edge, dtype):
+    """T at the edges of K10's two-stage ring of chunks: one step, a
+    chunk short of full, one step into the second chunk, three turns."""
+    T = _edge_steps(wkv6.chunk_steps(K), edge)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    args = _wkv6_inputs(gen, BH, T, K, dtype, cuda)
+    got = wkv6.wkv6_kernel(*args)
+    torch.cuda.synchronize()
+    _close(got, wkv6.wkv6_plain(*args), dtype)
+
+
+@pytest.mark.parametrize("BH,T,K,offset", [
+    (2, 37, 33, 0),     # odd T * K: no tile is 16-byte aligned
+    (1, 33, 100, 0),    # T * K = 3300: aligned in float32 only
+    (2, 40, 64, 1),     # a base one element off 16 bytes
+])
+@pytest.mark.parametrize("dtype", LM_DTYPES)
+def test_wkv6_kernel_on_unaligned_tiles(cuda, BH, T, K, offset, dtype):
+    """Tiles that the TMA cannot copy (not 16-byte aligned) go through
+    the register path of the same kernel."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    args = list(_wkv6_inputs(gen, BH, T, K, dtype, cuda))
+    for i in range(4):
+        flat = torch.empty(BH * T * K + offset, dtype=dtype, device=cuda)
+        flat[offset:] = args[i].reshape(-1)
+        args[i] = flat[offset:].view(BH, T, K)
+    got = wkv6.wkv6_kernel(*args)
+    torch.cuda.synchronize()
+    _close(got, wkv6.wkv6_plain(*args), dtype)
+
+
+@pytest.mark.parametrize("BH,T,K", [(4, 100, 64), (2, 53, 100)])
+@pytest.mark.parametrize("dtype", LM_DTYPES)
+def test_wkv6_kernel_is_bit_identical_run_to_run(cuda, BH, T, K, dtype):
+    """The groups' partial sums are added in a fixed order, never by
+    atomics: two runs give the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    args = _wkv6_inputs(gen, BH, T, K, dtype, cuda)
+    first = wkv6.wkv6_kernel(*args)
+    second = wkv6.wkv6_kernel(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def _rglru_inputs(gen, B, T, D, dtype, dev):
+    x = _randn(gen, (B, T, D), dtype, dev)
+    a = (torch.rand((B, T, D), generator=gen, device=dev) * 0.93
+         + 0.05).to(dtype)
+    return x, a
+
+
 @pytest.mark.parametrize("B,T,D", [(2, 1, 64), (3, 13, 300), (1, 70, 33)])
 @pytest.mark.parametrize("dtype", LM_DTYPES)
 def test_rglru_kernel_matches_plain(cuda, B, T, D, dtype):
     gen = torch.Generator(device=cuda).manual_seed(3)
-    x = _randn(gen, (B, T, D), dtype, cuda)
-    a = (torch.rand((B, T, D), generator=gen, device=cuda) * 0.93
-         + 0.05).to(dtype)
+    x, a = _rglru_inputs(gen, B, T, D, dtype, cuda)
     got = rglru.rglru_kernel(x, a)
     torch.cuda.synchronize()
     _close(got, rglru.rglru_plain(x, a), dtype)
+
+
+@pytest.mark.parametrize("edge", EDGES)
+@pytest.mark.parametrize("D", [128, 200, 300])
+@pytest.mark.parametrize("dtype", LM_DTYPES)
+def test_rglru_kernel_at_the_ring_edges(cuda, D, edge, dtype):
+    """T at the edges of K11's ring of stages, on one full channel tile,
+    on a ragged second tile (200) and on rows that are not 16-byte
+    aligned in bf16 (300: plain loads into the ring)."""
+    T = _edge_steps(rglru.stage_steps(dtype), edge)
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    x, a = _rglru_inputs(gen, 2, T, D, dtype, cuda)
+    got = rglru.rglru_kernel(x, a)
+    torch.cuda.synchronize()
+    _close(got, rglru.rglru_plain(x, a), dtype)
+
+
+@pytest.mark.parametrize("B,T,D,offset", [(2, 70, 200, 0), (3, 37, 300, 0),
+                                          (1, 53, 128, 1), (8, 64, 4096, 0)])
+@pytest.mark.parametrize("dtype", LM_DTYPES)
+def test_rglru_kernel_gives_the_plain_bits(cuda, B, T, D, offset, dtype):
+    """Each channel is walked in order with every float32 operation
+    rounded once, in the plain version's order (``a * a``, ``1 - .``,
+    clip, ``sqrt``, ``* x``, then ``a * h`` and ``+ g``; no fma): the
+    kernel gives the plain version's bits on the card, on the TMA ring
+    and on the plain-load path (a base one element off)."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    x, a = _rglru_inputs(gen, B, T, D, dtype, cuda)
+    if offset:
+        x, a = (torch.empty(t.numel() + offset, dtype=dtype, device=cuda)
+                [offset:].view_as(t).copy_(t) for t in (x, a))
+    got = rglru.rglru_kernel(x, a)
+    torch.cuda.synchronize()
+    assert torch.equal(got, rglru.rglru_plain(x, a))
+
+
+@pytest.mark.parametrize("dtype", LM_DTYPES)
+def test_rglru_kernel_gives_the_plain_bits_at_the_clip_edges(cuda, dtype):
+    """Gates where ``1 - a²`` is 0, negative (clipped), 1, or as small as
+    a float ``a`` below 1 makes it: the kernel's square root (no branch
+    to a general path) still gives the plain version's bits."""
+    edges = torch.tensor([0.0, 1.0, -1.0, 1.5, 1 - 2.0 ** -24, 1 - 2.0 ** -12,
+                          0.999, 1e-20, -1e-20, 2.0 ** -24, 0.5, 0.70710678],
+                         device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    B, T, D = 2, 40, 136
+    a = edges[torch.randint(len(edges), (B, T, D), generator=gen,
+                            device=cuda)].to(dtype)
+    x = _randn(gen, (B, T, D), dtype, cuda)
+    got = rglru.rglru_kernel(x, a)
+    torch.cuda.synchronize()
+    assert torch.equal(got, rglru.rglru_plain(x, a))
 
 
 @pytest.mark.parametrize("dtype", LM_DTYPES)

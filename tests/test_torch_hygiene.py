@@ -226,6 +226,25 @@ def test_wkv6_wide_shared_limit_is_the_wrappers():
     assert m and int(m.group(1)) == native.MAX_SHARED_BYTES
 
 
+@pytest.mark.parametrize("name,module,attr", [
+    ("WKV6_GROUPS", "wkv6", "GROUPS"),
+    ("WKV6_TILE", "wkv6", "CHUNK_ELEMENTS"),
+    ("RGLRU_TILE", "rglru", "TILE"),
+    ("RGLRU_STAGES", "rglru", "STAGES"),
+    ("RGLRU_STAGE_BYTES", "rglru", "STAGE_BYTES"),
+])
+def test_recurrence_tilings_are_the_kernels(name, module, attr):
+    """The tiling constants that K10's and K11's wrappers and CPU walks
+    (``tests/test_torch_lm.py``) and the card tests' ring edges read are
+    the CUDA kernels' own."""
+    import importlib
+    path = os.path.join(REPO, native.KERNELS[module].source)
+    with open(path, encoding="utf-8") as f:
+        m = re.search(rf"constexpr int {name} = (\d+);", f.read())
+    mod = importlib.import_module(f"repro_torch.kernels.{module}")
+    assert m and int(m.group(1)) == getattr(mod, attr)
+
+
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
     script = os.path.join(REPO, "chip_smoke.py")
     lone = tmp_path / "chip_smoke.py"

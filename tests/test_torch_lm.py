@@ -33,8 +33,10 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro import configs as jconfigs  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels.rglru import rglru_pallas  # noqa: E402
+from repro.kernels.wkv6 import wkv6_pallas  # noqa: E402
 from repro_torch import configs  # noqa: E402
-from repro_torch.kernels import native, ops, wkv6  # noqa: E402
+from repro_torch.kernels import native, ops, rglru, wkv6  # noqa: E402
 from repro_torch.kernels.local_attn import local_attn_plain  # noqa: E402
 
 BF16 = np.dtype("bfloat16")
@@ -207,6 +209,70 @@ def test_wkv6_any_length_matches_oracle(T):
     _close(ops.wkv6(*tin), jops.wkv6(*jin, use_pallas=False), 1e-3)
 
 
+def _tree_sum(parts):
+    """``parts[0] + ... + parts[n - 1]`` as a balanced tree, pairs of
+    neighbours first: ``((p0 + p1) + (p2 + p3)) + ...``."""
+    while len(parts) > 1:
+        parts = [parts[x] + parts[x + 1] for x in range(0, len(parts), 2)]
+    return parts[0]
+
+
+def _wkv6_kernel_walk(r, k, v, w, u):
+    """K10's order on the card, in plain PyTorch, on ``(BH, T, K)``: the
+    state padded to the kernel's register width ``W`` (rows and columns
+    from ``K`` up hold zeros), its rows in ``GROUPS`` groups of ``W /
+    GROUPS``, chunks of ``chunk_steps(K)`` steps.  For each step, group
+    ``g``'s partial ``p_g = Σ_{i∈g} r_i S_ij`` in ascending ``i`` before
+    the state's update; ``bonus = Σ_i (r_i u_i) k_i`` as the kernel's
+    warp sums it (lane ``l`` adds channels ``l, l + 32, ...``, then the
+    lanes' sums are halved: 16 onto 0, 8, 4, 2, 1); for each chunk, ``o =
+    bonus v`` plus the partials' balanced tree."""
+    BH, T, K = r.shape
+    W, G = wkv6.register_width(K), wkv6.GROUPS
+    R, L = W // G, wkv6.chunk_steps(K)
+    r, k, v, w, u = (torch.nn.functional.pad(t.float(), (0, W - K))
+                     for t in (r, k, v, w, u))
+    decay = torch.exp(-torch.exp(w))
+    decay[..., K:] = 0.0
+    S = torch.zeros(BH, G, R, W)
+    out = torch.empty(BH, T, W)
+    for t0 in range(0, T, L):
+        n = min(L, T - t0)
+        ruk = (r[:, t0:t0 + n] * u[:, None] * k[:, t0:t0 + n]).view(
+            BH, n, W // 32, 32)
+        lanes = torch.zeros(BH, n, 32)
+        for x in range(W // 32):
+            lanes = lanes + ruk[:, :, x]
+        while lanes.shape[-1] > 1:
+            half = lanes.shape[-1] // 2
+            lanes = lanes[..., :half] + lanes[..., half:]
+        bonus = lanes[..., 0]
+        part = torch.empty(BH, G, n, W)
+        for tt in range(n):
+            t = t0 + tt
+            rt, kt, dt = (x[:, t].view(BH, G, R) for x in (r, k, decay))
+            p = torch.zeros(BH, G, W)
+            for q in range(R):
+                p = p + rt[:, :, q, None] * S[:, :, q]
+            S = dt[..., None] * S + kt[..., None] * v[:, t, None, None, :]
+            part[:, :, tt] = p
+        out[:, t0:t0 + n] = bonus[..., None] * v[:, t0:t0 + n] + _tree_sum(
+            list(part.unbind(1)))
+    return out[..., :K]
+
+
+@pytest.mark.parametrize("T", [1, 37, 70])
+@pytest.mark.parametrize("K", [16, 48, 64])
+def test_wkv6_kernel_order_matches_pallas(K, T):
+    """K10's walk (row groups, chunks that ``T`` need not fill, the fixed
+    sum of the groups' partials) against ``wkv6_pallas`` in interpret
+    mode on the same numpy inputs, float32, ``rtol`` 1e-5."""
+    jin, tin = _arrays(np.float32, *[(3, T, K)] * 4, (3, K), seed=K + T,
+                       scale=0.5)
+    want = wkv6_pallas(*jin, chunk=T, interpret=True)
+    _close(_wkv6_kernel_walk(*tin), want, 1e-5)
+
+
 # --------------------------------------------------------------------- #
 # K11 rglru
 # --------------------------------------------------------------------- #
@@ -245,6 +311,36 @@ def test_rglru_bf16_matches_oracle(B, T, D):
 def test_rglru_any_length_matches_oracle(T):
     jin, tin = _rglru_inputs(3, T, 10, np.float32, seed=6)
     _close(ops.rglru(*tin), jops.rglru(*jin, use_pallas=False), 1e-4)
+
+
+def _rglru_tiled_walk(x, a):
+    """K11's order on the card, in plain PyTorch: tiles of ``rglru.TILE``
+    channels, each walked in stages of ``stage_steps`` steps, one float32
+    operation at a time in the plain version's order."""
+    B, T, D = x.shape
+    L = rglru.stage_steps(x.dtype)
+    out = torch.empty(B, T, D)
+    for c0 in range(0, D, rglru.TILE):
+        xs = x[..., c0:c0 + rglru.TILE].float()
+        as_ = a[..., c0:c0 + rglru.TILE].float()
+        h = torch.zeros(B, xs.shape[2])
+        for t0 in range(0, T, L):
+            for t in range(t0, min(T, t0 + L)):
+                at = as_[:, t]
+                g = torch.sqrt(torch.clamp(1.0 - at * at, 0.0, 1.0)) * xs[:, t]
+                h = at * h + g
+                out[:, t, c0:c0 + rglru.TILE] = h
+    return out.to(x.dtype)
+
+
+@pytest.mark.parametrize("B,T,D", [(2, 37, 200), (1, 50, 300),
+                                   (2, 17, 130)])
+def test_rglru_tiled_walk_matches_pallas(B, T, D):
+    """K11's tiled walk (``D`` no tile divides, ``T`` no stage divides)
+    against ``rglru_pallas`` in interpret mode, float32, ``rtol`` 1e-5."""
+    jin, tin = _rglru_inputs(B, T, D, np.float32, seed=B + T + D)
+    want = rglru_pallas(*jin, chunk=T, interpret=True)
+    _close(_rglru_tiled_walk(*tin), want, 1e-5)
 
 
 # --------------------------------------------------------------------- #
