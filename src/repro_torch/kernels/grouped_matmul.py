@@ -4,7 +4,8 @@
 ``src/repro/kernels/grouped_matmul.py:39`` ``grouped_matmul_pallas``:
 ``y[e] = x[e] @ w[e]`` for ``x (E, C, D)`` and ``w (E, D, F)``, summed in
 float32, ``y`` in ``x.dtype`` (float32 or bfloat16).  A matrix product
-at MoE widths is bound by the tensor cores.  The CUDA kernels
+at MoE widths is bound by operations: by the tensor cores in bf16, by
+the CUDA cores' FFMA in float32.  The CUDA kernels
 (``csrc/lm_kernels.cu``):
 
 * **bf16**: one thread block per (expert, 128-row tile of ``C``,
@@ -16,10 +17,23 @@ at MoE widths is bound by the tensor cores.  The CUDA kernels
   of 8 (zero columns of ``x`` and rows of ``w`` add nothing; the padded
   columns of ``y`` are sliced off), and the wrapper raises when a tensor
   it hands to TMA has a base pointer that is not 16-byte aligned.
-* **float32**: a 64 x 64 output tile per thread block on the CUDA cores,
-  ``D`` in steps of 16 through shared memory (``wgmma``'s only float32
-  mode is TF32, which would miss the float32 tolerance); any ``C``,
-  ``D``, ``F``.
+* **float32**: a register-blocked FFMA GEMM on the CUDA cores, bound by
+  their 67 TFLOP/s (``wgmma``'s only float32 mode is TF32, whose
+  operands it takes only K-major in shared memory, where ``w`` is
+  MN-major, and which keeps about three decimal digits: it would miss
+  the float32 tolerance).  One block of 256 threads per (expert,
+  128-row tile of ``C``, 128-column tile of ``F``); each thread keeps
+  8 x 8 sums in registers, four 4 x 4 quadrants 64 rows and columns
+  apart, so a warp's 16-byte shared reads have no bank conflict and one
+  of them feeds 16 FMAs.  ``D`` goes in steps of 16 through two
+  shared-memory stages with one barrier a step: the next step's ``w``
+  tile arrives by ``cp.async`` and its ``x`` tile by loads into
+  registers while the step's arithmetic runs.  Each output is
+  summed from 0 in ascending ``d``, one ``fmaf`` at a time, so two calls
+  give the same bits.  When ``x``, ``w`` and ``y`` are 16-byte aligned
+  and ``D`` and ``F`` are multiples of 4 it moves 16 bytes a load and a
+  store; otherwise the same kernel moves scalars.  Any ``C``, ``D``,
+  ``F`` (the edges are zero-filled).
 
 On CPU tensors the wrapper runs the plain version
 (:func:`~repro_torch.kernels.ref.grouped_matmul_ref`); on CUDA tensors it
@@ -33,7 +47,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import native, ref
 
 #: output tile (rows, columns) of the kernel for each precision
-TILES = {torch.float32: (64, 64), torch.bfloat16: (128, 128)}
+TILES = {torch.float32: (128, 128), torch.bfloat16: (128, 128)}
 #: TMA's row strides are multiples of 16 bytes: 8 bf16
 ALIGN = 8
 

@@ -3,11 +3,13 @@
 float64 table-order sums; K3, the fused chain, on 2- and 3-level
 chains over work items from one block to the default cut, the same
 bits run to run; K5-K7, the paper kernels; K8-K11, the LM kernels, in
-float32 and bfloat16 at sizes no tile or chunk divides, K8's bf16
-tensor-core path at full tiles, on an identity weight and on a
-misaligned base; K10 at heads wider than 128, at the edges of its ring
-of chunks, on unaligned tiles and the same bits run to run; K11 at the
-edges of its ring and with the plain version's bits).
+float32 and bfloat16 at sizes no tile or chunk divides, K8's float32
+path at full tiles, ragged edges, D = 0, on misaligned bases (its
+scalar path) and the same bits call to call, K8's bf16 tensor-core
+path at full tiles, on an identity weight and on a misaligned base; K10
+at heads wider than 128, at the edges of its ring of chunks, on
+unaligned tiles and the same bits run to run; K11 at the edges of its
+ring and with the plain version's bits).
 
 These tests need an NVIDIA GPU and ``nvcc`` (the kernels are built from
 ``src/repro_torch/csrc`` at first use), so they carry the ``cuda``
@@ -502,6 +504,66 @@ def test_grouped_matmul_kernel_matches_plain(cuda, E, C, D, F, dtype):
     torch.cuda.synchronize()
     assert got.dtype == dtype
     _close(got, grouped_matmul.grouped_matmul_plain(x, w), dtype)
+
+
+@pytest.mark.parametrize("E,C,D,F", [
+    pytest.param(2, 256, 512, 384, id="full-tiles"),
+    pytest.param(3, 300, 203, 133, id="ragged"),
+    pytest.param(2, 130, 36, 260, id="vector-edges"),
+    pytest.param(2, 70, 0, 65, id="D=0")])
+def test_grouped_matmul_f32_tiles_and_edges(cuda, E, C, D, F):
+    """float32 on the CUDA cores: full 128 x 128 tiles over several
+    16-deep steps, C, D and F that no tile, step or float4 divides (the
+    scalar path; a tiny case is in the test above), ragged edges on the
+    vector path, and D = 0 (zeros); one launch a call."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    x = _randn(gen, (E, C, D), torch.float32, cuda)
+    w = _randn(gen, (E, D, F), torch.float32, cuda, max(D, 1) ** -0.5)
+    native.reset_launch_counts()
+    got = grouped_matmul.grouped_matmul_kernel(x, w)
+    torch.cuda.synchronize()
+    assert native.launch_counts()["grouped_matmul"] == 1
+    _close(got, grouped_matmul.grouped_matmul_plain(x, w), torch.float32)
+    if D == 0:
+        assert not bool(got.any())
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3], ids=["4B", "8B", "12B"])
+@pytest.mark.parametrize("operand", ["x", "w"])
+def test_grouped_matmul_f32_misaligned_base_takes_the_scalar_path(
+        cuda, operand, offset):
+    """A base 4, 8 or 12 bytes off 16-byte alignment (widths that the
+    vector path would take) runs the scalar path and agrees."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    E, C, D, F = 2, 140, 64, 136
+    shapes = {"x": (E, C, D), "w": (E, D, F)}
+    t = {}
+    for name, shape in shapes.items():
+        n = E * shape[1] * shape[2]
+        off = offset if name == operand else 0
+        flat = _randn(gen, (n + 4,), torch.float32, cuda, D ** -0.5)
+        t[name] = flat[off:off + n].view(shape)
+    assert t[operand].data_ptr() % 16 == 4 * offset
+    got = grouped_matmul.grouped_matmul_kernel(t["x"], t["w"])
+    torch.cuda.synchronize()
+    _close(got, grouped_matmul.grouped_matmul_plain(t["x"], t["w"]),
+           torch.float32)
+
+
+@pytest.mark.parametrize("E,C,D,F", [(2, 256, 512, 384), (3, 300, 203, 133)])
+def test_grouped_matmul_f32_is_bit_identical_call_to_call(cuda, E, C, D, F):
+    """Each output is a sum from 0 in ascending d: two calls on the same
+    inputs give the same bits, and each call is one launch."""
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    x = _randn(gen, (E, C, D), torch.float32, cuda)
+    w = _randn(gen, (E, D, F), torch.float32, cuda, D ** -0.5)
+    native.reset_launch_counts()
+    first = grouped_matmul.grouped_matmul_kernel(x, w)
+    assert native.launch_counts()["grouped_matmul"] == 1
+    second = grouped_matmul.grouped_matmul_kernel(x, w)
+    torch.cuda.synchronize()
+    assert native.launch_counts()["grouped_matmul"] == 2
+    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
 
 
 @pytest.mark.parametrize("E,C,D,F", [(1, 128, 64, 128), (2, 256, 512, 384),

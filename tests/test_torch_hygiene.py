@@ -226,6 +226,21 @@ def test_wkv6_wide_shared_limit_is_the_wrappers():
     assert m and int(m.group(1)) == native.MAX_SHARED_BYTES
 
 
+def test_grouped_matmul_f32_tile_is_the_kernels():
+    """``grouped_matmul.TILES[torch.float32]``, the tile whose grid the
+    wrapper hands ``native.check_grid``, is the float32 kernel's own
+    (``GM_BM`` rows of C by ``GM_BN`` columns of F), the grid its entry
+    point launches."""
+    from repro_torch.kernels import grouped_matmul
+    path = os.path.join(REPO, native.KERNELS["grouped_matmul"].source)
+    with open(path, encoding="utf-8") as f:
+        src = f.read()
+    tile = tuple(int(re.search(rf"constexpr int {name} = (\d+);",
+                               src).group(1))
+                 for name in ("GM_BM", "GM_BN"))
+    assert tile == grouped_matmul.TILES[torch.float32]
+
+
 @pytest.mark.parametrize("name,module,attr", [
     ("WKV6_GROUPS", "wkv6", "GROUPS"),
     ("WKV6_TILE", "wkv6", "CHUNK_ELEMENTS"),
