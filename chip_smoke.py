@@ -11,7 +11,12 @@ any failure exits non-zero):
 1. Build the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
    source, all started together; sm_90a); a ``PTXAS`` line per kernel
    gives its registers, spills and static shared memory (a spill in a
-   kernel of K10, K11 or K8 in float32 fails the run).
+   kernel of K10, K11, K8 in float32 or K9 in bf16 fails the run; a
+   ``PTXAS_NOTE`` line repeats each performance note, such as wgmma
+   instructions serialized); a ``SASS`` line per bf16 kernel of K8 and
+   K9 counts its wgmma (HGMMA) and TMA load (UTMALDG) instructions in
+   the built library (``cuobjdump -sass``), and a kernel with none of
+   either fails the run.
 2. A small tensor (60 x 50 x 40, density 0.01) through every engine and
    strategy (the fused chain included), against the port's numpy
    Algorithm-2 ``reference_execute``.
@@ -70,8 +75,8 @@ call's over ten calls back to back (``ms_back_to_back``,
 ``library_ms_back_to_back``: the host's work to launch one call then
 overlaps the device's work on the one before), achieved rates
 (``achieved_tflop_s``, ``achieved_tb_s``; a ``TENSOR_CORES`` line beside
-the bound for K8 in bf16, on wgmma, and a ``CUDA_CORES`` line for K8 in
-float32, its share of the float32 peak beside ``torch.bmm``'s time; K8
+the bound for K8 and K9 in bf16, on wgmma, and a ``CUDA_CORES`` line for
+K8 in float32, its share of the float32 peak beside ``torch.bmm``'s time; K8
 in float32 also gives the same bits on a second call),
 and the least time the card could take for the same work (bytes over
 3.35 TB/s, or operations over the peak for their type, whichever is
@@ -120,10 +125,16 @@ TRACE_NAMES = {stem: f"spttn::{stem}_kernel<" for stem in (
 MATMUL_STEMS = ("grouped_matmul", "local_attn")
 LM_STEMS = ("grouped_matmul", "local_attn", "wkv6", "rglru")
 # the recurrences, whose every kernel keeps its state in registers or
-# shared memory, and K8 in float32 (its mangled names), whose threads
-# keep 8 x 8 sums in registers: a spill fails the build phase
+# shared memory, K8 in float32, whose threads keep 8 x 8 sums in
+# registers, and K9 in bf16, whose O accumulators live in registers (their
+# mangled names): a spill fails the build phase
 NO_SPILL_STEMS = ("wkv6", "rglru")
-NO_SPILL_KERNELS = ("21grouped_matmul_kernelIf",)
+NO_SPILL_KERNELS = ("21grouped_matmul_kernelIf", "17local_attn_kernelILi")
+# K8 and K9 in bf16 (their mangled names), whose products run on the
+# tensor cores: their machine code must hold wgmma (HGMMA) and TMA loads
+# (UTMALDG), or the build phase fails
+TENSOR_CORE_KERNELS = ("21grouped_matmul_kernelI13__nv_bfloat16",
+                       "17local_attn_kernelILi")
 
 
 def log(*args) -> None:
@@ -233,6 +244,22 @@ def ptxas_kernels(report: str) -> list[dict]:
                 m = re.search(r"(\d+) bytes smem", line)
                 cur["static_smem"] = int(m.group(1)) if m else 0
     return recs
+
+
+def sass_counts(sass: str) -> dict[str, dict[str, int]]:
+    """The HGMMA (wgmma) and UTMALDG (TMA load) instructions of every
+    kernel in ``cuobjdump -sass`` output, by the kernel's mangled name."""
+    import re
+    counts: dict[str, dict[str, int]] = {}
+    cur = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = counts[m.group(1)] = {"HGMMA": 0, "UTMALDG": 0}
+        elif cur is not None:
+            for op in cur:
+                cur[op] += op in line
+    return counts
 
 
 def profile_path(label: str, fn, event_ms: float, need_ms: dict,
@@ -833,7 +860,7 @@ def measure(entries: list, spec_name: str) -> list[dict]:
              time_ms(lib, reps=3, warmup=1, calls=10))
             if lib is not None else (None, None))
         log("KERNEL_PHASE " + json.dumps(rec))
-        if stem == "grouped_matmul" and dtype == torch.bfloat16:
+        if stem in MATMUL_STEMS and dtype == torch.bfloat16:
             log(f"TENSOR_CORES {name} {stage}: {ops / ms / 1e9!r} TFLOP/s "
                 f"achieved in {ms!r} ms; the bound is {bound_ms!r} ms "
                 f"({ops_per_s / 1e12:g} TFLOP/s bf16, {bound_by})")
@@ -1027,9 +1054,25 @@ def main(argv=None) -> int:
             k in rec["kernel"] for k in NO_SPILL_KERNELS)
         if must_not and (rec.get("spill_stores") or rec.get("spill_loads")):
             spilled.append(rec["kernel"])
+    for line in report.splitlines():  # e.g. wgmma serialized (C7513)
+        if "Potential Performance Loss" in line:
+            log("PTXAS_NOTE " + line.strip())
     if spilled:
         raise AssertionError(f"kernels that must keep their state in "
                              f"registers spill: {spilled}")
+    cuobjdump = os.path.join(os.path.dirname(os.path.realpath(
+        native._nvcc())), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    tensor_core = {k: c for k, c in sass_counts(sass).items()
+                   if any(t in k for t in TENSOR_CORE_KERNELS)}
+    for kernel, c in tensor_core.items():
+        log("SASS " + json.dumps({"kernel": kernel, **c}))
+    if len(tensor_core) < len(TENSOR_CORE_KERNELS) or not all(
+            c["HGMMA"] and c["UTMALDG"] for c in tensor_core.values()):
+        raise AssertionError(f"a bf16 matrix-product kernel lacks wgmma or "
+                             f"TMA instructions: {tensor_core}")
     phase_done("1 build")
 
     rng = np.random.default_rng(args.seed)

@@ -2,30 +2,44 @@
 
 :func:`local_attn_kernel` replaces ``src/repro/kernels/local_attn.py:66``
 ``local_attn_pallas`` on ``(BH, T, D)``: ``out[q] = softmax_k(q·k ·
-scale) v`` over the keys ``q - window < k <= q``.  The CUDA kernel
-(``csrc/lm_kernels.cu``) gives each thread block one 64-row query tile
-and walks only the 64-row key tiles the band touches, with an online
-softmax in float32 and the Pallas kernel's rounding points for bf16
-(``q * scale`` in the input dtype, float32 logits, ``p`` cast to
-``v.dtype`` before ``p @ v``).  The mask is exact for any ``T`` and any
-``window >= 1``.  Unlike the Pallas kernel, whose kv-block index mixes
-query-tile and key-tile units when ``bq != bk``, the tile sizes are the
-kernel's own and the wrapper takes none.
-Attention is bound by the tensor cores at these widths; this first
-version runs on the CUDA cores (PERF.md).
+scale) v`` over the keys ``q - window < k <= q``.  Each thread block of
+the CUDA kernels (``csrc/lm_kernels.cu``) takes one query tile and walks
+only the 64-row key tiles the band touches, with an online softmax in
+float32 and the Pallas kernel's rounding points for bf16 (``q * scale``
+in the input dtype, float32 logits, ``p`` cast to ``v.dtype`` before
+``p @ v``, ``l`` summed from the float32 ``p``).  The mask is exact for
+any ``T`` and any ``window >= 1``.  Unlike the Pallas kernel, whose
+kv-block index mixes query-tile and key-tile units when ``bq != bk``,
+the tile sizes are the kernel's own and the wrapper takes none.
+
+* **bf16**, on the tensor cores: 128-row query tiles, two consumer
+  warpgroups of 64 rows each run ``Q·Kᵀ`` and ``P·V`` as ``wgmma`` while
+  a producer warpgroup keeps TMA loads of K and V in flight in a ring of
+  shared-memory stages; ``P`` stays in registers.  TMA needs 16-byte row
+  strides, so :func:`padded_head` pads ``D`` to a multiple of 8 (zero
+  columns add nothing to ``q·k`` and give zero output columns, which are
+  sliced off) and the original ``D``'s scale is passed; a tensor handed
+  to TMA whose base pointer is not 16-byte aligned raises.
+* **float32**, on the CUDA cores (``wgmma``'s float32 mode is TF32, which
+  misses the float32 tolerance): 64-row query tiles staged in shared
+  memory as float32, a register tile of outputs per thread.
 
 On CPU tensors the wrapper runs the plain version; on CUDA tensors it
-launches the kernel or raises.  ``D`` is at most 256 (the kernel keeps a
+launches the kernel or raises.  ``D`` is at most 256 (the kernels keep a
 query tile's float32 accumulators in registers).
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import native, ref
 
-TILE = 64            # query and key tile rows of the kernel
+#: query tile rows of the kernel for each precision (key tiles: 64)
+QUERY_TILES = {torch.float32: 64, torch.bfloat16: 128}
 MAX_HEAD_DIM = 256
+#: TMA's row strides are multiples of 16 bytes: 8 bf16
+ALIGN = 8
 
 
 def local_attn_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -33,6 +47,12 @@ def local_attn_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Plain version of K9: each chunk of queries against its dense
     slice of keys (:func:`~repro_torch.kernels.ref.local_attn_band`)."""
     return ref.local_attn_band(q, k, v, window, scale)
+
+
+def padded_head(D: int, dtype: torch.dtype) -> int:
+    """The head size the kernel in ``dtype`` takes: ``D`` rounded up to a
+    multiple of :data:`ALIGN` for bf16, unchanged for float32."""
+    return -(-D // ALIGN) * ALIGN if dtype == torch.bfloat16 else D
 
 
 def local_attn_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -55,10 +75,18 @@ def local_attn_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     scale = D ** -0.5 if scale is None else float(scale)
+    Dp = padded_head(D, q.dtype)
+    if q.dtype == torch.bfloat16:
+        if Dp != D:
+            q, k, v = (F.pad(t, (0, Dp - D)) for t in (q, k, v))
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"local_attn: {name}'s base pointer is not "
+                                 f"16-byte aligned (TMA needs it)")
     out = torch.empty_like(q)
-    native.check_grid(-(-T // TILE), BH)
+    native.check_grid(-(-T // QUERY_TILES[q.dtype]), BH)
     if BH * T:
         # a window of T or more is the causal mask: pass min(window, T)
-        native.launch("local_attn", q.dtype, q.device, q, k, v, BH, T, D,
+        native.launch("local_attn", q.dtype, q.device, q, k, v, BH, T, Dp,
                       min(window, T), scale, out)
-    return out
+    return out if Dp == D else out[..., :D].contiguous()

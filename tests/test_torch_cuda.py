@@ -6,7 +6,9 @@ bits run to run; K5-K7, the paper kernels; K8-K11, the LM kernels, in
 float32 and bfloat16 at sizes no tile or chunk divides, K8's float32
 path at full tiles, ragged edges, D = 0, on misaligned bases (its
 scalar path) and the same bits call to call, K8's bf16 tensor-core
-path at full tiles, on an identity weight and on a misaligned base; K10
+path at full tiles, on an identity weight and on a misaligned base; K9
+at the edges of its tiles, on padded heads, with the diagonal only (the
+output is ``v``), on a misaligned base and the same bits twice; K10
 at heads wider than 128, at the edges of its ring of chunks, on
 unaligned tiles and the same bits run to run; K11 at the edges of its
 ring and with the plain version's bits).
@@ -618,14 +620,67 @@ def test_grouped_matmul_bf16_misaligned_base_raises_or_pads(cuda):
     (1, 200, 256, 70),      # recurrentgemma's / gemma3's head size
     (3, 64, 40, 64),        # a head size no column tile divides
     (1, 600, 256, 300),     # bands across the plain version's chunks
+    # bf16's 128-row query tiles: T on both sides of one and two
+    (1, 127, 64, 50), (2, 129, 128, 100), (1, 257, 256, 129),
+    # windows on both sides of a 64-row key tile
+    (2, 300, 64, 63), (2, 300, 64, 64), (1, 300, 128, 65),
+    (1, 4100, 256, 2048),   # interior key tiles skip the mask
+    # bf16 pads D to a multiple of 8; DMAX (64, 128, 256) not filled;
+    # D = 160 leaves a 64-column box wholly past D (zeroed, never loaded)
+    (2, 150, 8, 40), (2, 150, 36, 70), (1, 200, 96, 64), (1, 260, 200, 100),
+    (1, 150, 160, 60),
+    (5, 140, 64, 30),       # BH = 5
 ])
 @pytest.mark.parametrize("dtype", LM_DTYPES)
 def test_local_attn_kernel_matches_plain(cuda, BH, T, D, window, dtype):
     gen = torch.Generator(device=cuda).manual_seed(1)
     q, k, v = (_randn(gen, (BH, T, D), dtype, cuda) for _ in range(3))
+    native.reset_launch_counts()
     got = local_attn.local_attn_kernel(q, k, v, window)
     torch.cuda.synchronize()
+    assert native.launch_counts()["local_attn"] == 1
     _close(got, local_attn.local_attn_plain(q, k, v, window), dtype)
+
+
+@pytest.mark.parametrize("BH,T,D", [(2, 300, 64), (1, 200, 200),
+                                    (3, 130, 36)])
+def test_local_attn_bf16_window_one_is_v(cuda, BH, T, D):
+    """With the diagonal only, each row's softmax is one 1 and the
+    output is ``v`` bit for bit: a wrong V descriptor, fragment or
+    epilogue shows as misplaced values."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v = (_randn(gen, (BH, T, D), torch.bfloat16, cuda)
+               for _ in range(3))
+    got = local_attn.local_attn_kernel(q, k, v, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, v)
+
+
+def test_local_attn_bf16_gives_the_same_bits_twice(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (_randn(gen, (2, 1000, 256), torch.bfloat16, cuda)
+               for _ in range(3))
+    first = local_attn.local_attn_kernel(q, k, v, 300)
+    second = local_attn.local_attn_kernel(q, k, v, 300)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+
+
+def test_local_attn_bf16_misaligned_base_raises_or_pads(cuda):
+    """A base pointer off 16 bytes raises when the tensor goes to TMA as
+    it is; when D needs padding the padded copy is aligned."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    BH, T, D = 2, 70, 64
+    flat = _randn(gen, (BH * T * D + 1,), torch.bfloat16, cuda)
+    q = flat[1:].view(BH, T, D)
+    k, v = (_randn(gen, (BH, T, D), torch.bfloat16, cuda) for _ in range(2))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        local_attn.local_attn_kernel(q, k, v, 20)
+    q6 = flat[1:1 + BH * T * 60].view(BH, T, 60)   # D = 60: padded to 64
+    k6, v6 = k[..., :60].contiguous(), v[..., :60].contiguous()
+    got = local_attn.local_attn_kernel(q6, k6, v6, 20)
+    torch.cuda.synchronize()
+    _close(got, local_attn.local_attn_plain(q6, k6, v6, 20), torch.bfloat16)
 
 
 def _wkv6_inputs(gen, BH, T, K, dtype, dev):

@@ -241,6 +241,22 @@ def test_grouped_matmul_f32_tile_is_the_kernels():
     assert tile == grouped_matmul.TILES[torch.float32]
 
 
+def test_local_attn_query_tiles_are_the_kernels():
+    """``local_attn.QUERY_TILES``, whose grid the wrapper hands
+    ``native.check_grid``, are the kernels' own query tiles: ``LA_B``
+    rows in float32 and ``LT_BQ`` in bf16, the grids their entry points
+    launch."""
+    from repro_torch.kernels import local_attn
+    path = os.path.join(REPO, native.KERNELS["local_attn"].source)
+    with open(path, encoding="utf-8") as f:
+        src = f.read()
+    rows = {name: int(re.search(rf"constexpr int {name} = (\d+)",
+                                src).group(1))
+            for name in ("LA_B", "LT_BQ")}
+    assert local_attn.QUERY_TILES == {torch.float32: rows["LA_B"],
+                                      torch.bfloat16: rows["LT_BQ"]}
+
+
 @pytest.mark.parametrize("name,module,attr", [
     ("WKV6_GROUPS", "wkv6", "GROUPS"),
     ("WKV6_TILE", "wkv6", "CHUNK_ELEMENTS"),

@@ -37,7 +37,8 @@ from repro.kernels.rglru import rglru_pallas  # noqa: E402
 from repro.kernels.wkv6 import wkv6_pallas  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.kernels import native, ops, rglru, wkv6  # noqa: E402
-from repro_torch.kernels.local_attn import local_attn_plain  # noqa: E402
+from repro_torch.kernels.local_attn import (local_attn_plain,  # noqa: E402
+                                            padded_head)
 
 BF16 = np.dtype("bfloat16")
 DTYPES = [pytest.param(np.float32, id="f32"), pytest.param(BF16, id="bf16")]
@@ -400,6 +401,108 @@ def test_local_attn_rejects_unequal_heads_and_empty_windows():
     assert tuple(out.shape) == (1, 8, 4, 16)
     with pytest.raises(ValueError, match="window"):
         ops.local_attn(q, q, q, 0)
+
+
+@pytest.mark.parametrize("D", [36, 40])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_local_attn_zero_padded_head_gives_the_unpadded_result(D, dtype):
+    """The identity the bf16 wrapper's padding relies on: q, k and v
+    zero-padded to the head size the kernel takes (D rounded up to 8; 40
+    needs none), the original D's scale, the padded columns sliced off:
+    zero columns add exact zeros to q.k and give zero output columns, so
+    the result is the unpadded one bit for bit."""
+    (jq, jk, jv), (q, k, v) = _arrays(dtype, *[(1, 70, 2, D)] * 3,
+                                      seed=D)
+    Dp = padded_head(D, torch.bfloat16)
+    assert Dp == 40 and padded_head(D, torch.float32) == D
+    folded = [t[0].transpose(0, 1) for t in (q, k, v)]       # (H, T, D)
+    padded = [torch.nn.functional.pad(t, (0, Dp - D)) for t in folded]
+    got = local_attn_plain(*padded, 20, D ** -0.5)[..., :D]
+    assert torch.equal(got, local_attn_plain(*folded, 20))
+    want = jops.local_attn(jq, jk, jv, 20, use_pallas=False)
+    _close(got.transpose(0, 1)[None], want, _rel(dtype))
+
+
+def _close_bf16(got, want):
+    """PERF.md's element bound for bf16: the smaller of ``1e-2 * max(1,
+    max|want|)`` and ``2**-7 |want| + 2**-4 rms(want)``."""
+    got, want = got.double(), want.double()
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    err = (got - want).abs()
+    assert float(err.max()) <= 1e-2 * max(1.0, float(want.abs().max()))
+    tol = 2.0 ** -7 * want.abs() + 2.0 ** -4 * want.square().mean().sqrt()
+    assert not bool((err > tol).any()), float(err.max())
+
+
+def _local_attn_tc_walk(q, k, v, window):
+    """K9 bf16's order on the card, in plain PyTorch: 128-row query tiles
+    of two 64-row halves (the consumer warpgroups), each walking the
+    64-row key tiles from the one holding ``max(0, q0 - window + 1)`` to
+    the one holding ``q1 - 1``.  A tile wholly outside a half's band is
+    skipped and one wholly inside takes no mask, by the kernel's integer
+    tests, which are checked against the mask here.  Online softmax in
+    base 2 (``exp2(s log2e - m log2e)``), ``p`` rounded to bf16 for
+    ``P V``, ``l`` summed from the float32 ``p``."""
+    BH, T, D = q.shape
+    window = min(window, T)
+    log2e = torch.tensor(1.4426950408889634)
+    zeros = torch.zeros(BH, 128, D)
+    qs = torch.cat([(q.float() * D ** -0.5).to(q.dtype).float(), zeros], 1)
+    kf = torch.cat([k.float(), zeros[:, :64]], 1)
+    vf = torch.cat([v.float(), zeros[:, :64]], 1)
+    out = torch.empty(BH, T, D)
+    for q0 in range(0, T, 128):
+        q1 = min(q0 + 128, T)
+        kb0, kb1 = max(0, q0 - window + 1) // 64, (q1 - 1) // 64
+        for qa in (q0, q0 + 64):
+            rows = torch.arange(qa, qa + 64)
+            m = torch.full((BH, 64), -torch.inf)
+            l = torch.zeros(BH, 64)
+            o = torch.zeros(BH, 64, D)
+            for kb in range(kb0, kb1 + 1):
+                k0 = kb * 64
+                d = rows[:, None] - torch.arange(k0, k0 + 64)[None]
+                band = (d >= 0) & (d < window)
+                outside = k0 > qa + 63 or k0 + 63 <= qa - window
+                inside = k0 + 63 <= qa and k0 > qa + 63 - window
+                assert outside == (not bool(band.any()))
+                assert inside == bool(band.all())
+                if outside:
+                    continue
+                s = qs[:, qa:qa + 64] @ kf[:, k0:k0 + 64].mT
+                if not inside:
+                    s = torch.where(band, s, -torch.inf)
+                m_new = torch.maximum(m, s.amax(-1))
+                ms = torch.where(m_new == -torch.inf, 0.0, m_new * log2e)
+                alpha = torch.exp2(m * log2e - ms)
+                p = torch.exp2(s * log2e - ms[..., None])
+                l = alpha * l + p.sum(-1)
+                o = alpha[..., None] * o + \
+                    p.to(torch.bfloat16).float() @ vf[:, k0:k0 + 64]
+                m = m_new
+            res = o / l.clamp(min=1e-30)[..., None]
+            n = max(0, min(64, T - qa))
+            out[:, qa:qa + n] = res[:, :n]
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("T,D,window", [
+    (127, 8, 50), (129, 36, 63), (257, 40, 64), (300, 16, 65),
+    (300, 8, 1), (200, 8, 1000), (700, 8, 200), (1100, 8, 300),
+])
+def test_local_attn_bf16_kernel_walk_matches_plain(T, D, window):
+    """The bf16 tensor-core kernel's tile walk and its skip / no-mask
+    tests, against the plain version (PERF.md's bf16 element bound) and
+    the JAX oracle, at lengths on both sides of a 128-row query tile and
+    windows on both sides of a 64-row key tile."""
+    (jq, jk, jv), (q, k, v) = _arrays(BF16, *[(1, T, 2, D)] * 3,
+                                      seed=T + D)
+    folded = [t[0].transpose(0, 1).contiguous() for t in (q, k, v)]
+    got = _local_attn_tc_walk(*folded, window)
+    _close_bf16(got, local_attn_plain(*folded, window))
+    _close(got.transpose(0, 1)[None],
+           jops.local_attn(jq, jk, jv, window, use_pallas=False),
+           _rel(BF16))
 
 
 # --------------------------------------------------------------------- #

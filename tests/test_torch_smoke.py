@@ -100,3 +100,28 @@ def test_a_trace_at_its_bound_is_kept(monkeypatch, capsys):
     assert "attempt 1 (padding 0.0 s) retaken for its clock" in out
     assert "attempt 2 (padding 0.0 s) retaken for its launches" in out
     assert '"attempts": 3' in out and '"kernel_bound_ms"' in out
+
+
+def test_sass_counts_find_the_tensor_core_kernels():
+    """The build phase's machine-code check: per kernel of the
+    ``cuobjdump -sass`` listing, its HGMMA and UTMALDG lines; the bf16
+    kernels of K8 and K9 are the ones ``TENSOR_CORE_KERNELS`` names."""
+    smoke = _chip_smoke()
+    k9 = ("_ZN5spttn17local_attn_kernelILi256EEEv14CUtensorMap_stS1_S1_"
+          "iiifP13__nv_bfloat16")
+    f32 = "_ZN5spttn17local_attn_kernelIfLi256EEEvPKT_S3_S3_iiifPS1_"
+    sass = "\n".join([
+        "\t\tFunction : " + f32,
+        "        /*0100*/   FFMA R4, R5, R6, R4 ;",
+        "\t\tFunction : " + k9,
+        "        /*0200*/   UTMALDG.3D [UR8], [UR4] ;",
+        "        /*0210*/   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ ;",
+        "        /*0220*/   HGMMA.64x256x16.F32.BF16 R24, R152, gdesc[UR8] ;",
+    ])
+    counts = smoke.sass_counts(sass)
+    assert counts == {f32: {"HGMMA": 0, "UTMALDG": 0},
+                      k9: {"HGMMA": 2, "UTMALDG": 1}}
+    picked = [k for k in counts
+              if any(t in k for t in smoke.TENSOR_CORE_KERNELS)]
+    assert picked == [k9]
+
