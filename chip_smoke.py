@@ -11,9 +11,9 @@ any failure exits non-zero):
 1. Build the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
    source, all started together; sm_90a); a ``PTXAS`` line per kernel
    gives its registers, spills and static shared memory (a spill in a
-   kernel of K10, K11, K8 in float32 or K9 in bf16 fails the run; a
-   ``PTXAS_NOTE`` line repeats each performance note, such as wgmma
-   instructions serialized); a ``SASS`` line per bf16 kernel of K8 and
+   kernel of K10 or K11, or of K8 or K9 in either precision, fails the
+   run; a ``PTXAS_NOTE`` line repeats each performance note, such as
+   wgmma instructions serialized); a ``SASS`` line per bf16 kernel of K8 and
    K9 counts its wgmma (HGMMA) and TMA load (UTMALDG) instructions in
    the built library (``cuobjdump -sass``), and a kernel with none of
    either fails the run.
@@ -44,8 +44,8 @@ any failure exits non-zero):
    three expert GEMMs of K8, E = 32, D = 1024, F = 512, 4,096 tokens at
    the dropless capacity C = 4,096; bf16, and f32 once);
    recurrentgemma-9b's local attention (K9, B = 1, T = 32,768, 16 heads
-   of 256, window 2,048, the single kv head expanded to 16; bf16, and
-   f32 once) and gemma3-1b's (4 heads, window 512; bf16); rwkv6-3b's
+   of 256, window 2,048, the single kv head expanded to 16) and
+   gemma3-1b's (4 heads, window 512), each in bf16 and f32; rwkv6-3b's
    WKV6 (K10, B = 8,
    T = 4,096, 40 heads of 64; bf16 and f32); recurrentgemma-9b's RG-LRU
    (K11, B = 8, T = 4,096, D = 4,096; bf16 and f32).
@@ -76,8 +76,9 @@ call's over ten calls back to back (``ms_back_to_back``,
 overlaps the device's work on the one before), achieved rates
 (``achieved_tflop_s``, ``achieved_tb_s``; a ``TENSOR_CORES`` line beside
 the bound for K8 and K9 in bf16, on wgmma, and a ``CUDA_CORES`` line for
-K8 in float32, its share of the float32 peak beside ``torch.bmm``'s time; K8
-in float32 also gives the same bits on a second call),
+K8 and K9 in float32, their share of the float32 peak beside the library
+call's time (``torch.bmm``, SDPA) and the SM clock under their load; K8
+and K9 in float32 also give the same bits on a second call),
 and the least time the card could take for the same work (bytes over
 3.35 TB/s, or operations over the peak for their type, whichever is
 larger: 989 TFLOP/s for bf16 matrix products on the tensor cores (K8,
@@ -121,15 +122,17 @@ TRACE_NAMES = {stem: f"spttn::{stem}_kernel<" for stem in (
     "reduce", "product", "splitk", "combine", "chain", "mttkrp", "ttmc",
     "tttp", "grouped_matmul", "local_attn", "wkv6", "rglru")}
 # the kernels whose work is a matrix product (bound by the tensor cores
-# in bf16); the LM wrappers' modules
-MATMUL_STEMS = ("grouped_matmul", "local_attn")
+# in bf16, by FFMA in float32), with their library call's name; the LM
+# wrappers' modules
+MATMUL_STEMS = {"grouped_matmul": "torch.bmm", "local_attn": "SDPA"}
 LM_STEMS = ("grouped_matmul", "local_attn", "wkv6", "rglru")
 # the recurrences, whose every kernel keeps its state in registers or
 # shared memory, K8 in float32, whose threads keep 8 x 8 sums in
-# registers, and K9 in bf16, whose O accumulators live in registers (their
-# mangled names): a spill fails the build phase
+# registers, and K9 in bf16 and in float32, whose O accumulators live in
+# registers (their mangled names): a spill fails the build phase
 NO_SPILL_STEMS = ("wkv6", "rglru")
-NO_SPILL_KERNELS = ("21grouped_matmul_kernelIf", "17local_attn_kernelILi")
+NO_SPILL_KERNELS = ("21grouped_matmul_kernelIf", "17local_attn_kernelILi",
+                    "17local_attn_kernelIfLi")
 # K8 and K9 in bf16 (their mangled names), whose products run on the
 # tensor cores: their machine code must hold wgmma (HGMMA) and TMA loads
 # (UTMALDG), or the build phase fails
@@ -832,8 +835,9 @@ def measure(entries: list, spec_name: str) -> list[dict]:
         torch.cuda.synchronize()
         err = check(f"{name} {stage} ({spec_name}, {where})", got, want)
         dtype = got.dtype
-        if stem == "grouped_matmul" and dtype == torch.float32:
-            # K8 in float32 sums in ascending d: a second call, the same bits
+        if stem in MATMUL_STEMS and dtype == torch.float32:
+            # K8 and K9 in float32 sum in a fixed order: a second call, the
+            # same bits
             same = torch.equal(got.view(torch.int32),
                                kern().view(torch.int32))
             log(f"check {name} {stage}: the same bits on a second call "
@@ -864,14 +868,15 @@ def measure(entries: list, spec_name: str) -> list[dict]:
             log(f"TENSOR_CORES {name} {stage}: {ops / ms / 1e9!r} TFLOP/s "
                 f"achieved in {ms!r} ms; the bound is {bound_ms!r} ms "
                 f"({ops_per_s / 1e12:g} TFLOP/s bf16, {bound_by})")
-        elif stem == "grouped_matmul":
+        elif stem in MATMUL_STEMS:
             rate = ops / ms / 1e9
+            lib_rate = ops / lib_ms / 1e9 if lib_ms else None
             log(f"CUDA_CORES {name} {stage}: {rate!r} TFLOP/s achieved in "
                 f"{ms!r} ms, {rate / (ops_per_s / 1e12)!r} of the "
                 f"{ops_per_s / 1e12:g} TFLOP/s float32 peak (bound "
-                f"{bound_ms!r} ms, {bound_by}); torch.bmm f32 {lib_ms!r} ms, "
-                f"{ops / lib_ms / 1e9!r} TFLOP/s; SM clock and power under "
-                f"its load {clock_under_load(kern)}")
+                f"{bound_ms!r} ms, {bound_by}); {MATMUL_STEMS[stem]} f32 "
+                f"{lib_ms!r} ms, {lib_rate!r} TFLOP/s; SM clock and power "
+                f"under its load {clock_under_load(kern)}")
         out.append(rec)
     return out
 
@@ -1354,12 +1359,13 @@ def main(argv=None) -> int:
                 "grouped_matmul", moe.name)
         del xe, wg, wu, wd, ffn
     # K9: local attention at prefill_32k's length, batch cut to 1; the
-    # kv heads expanded to the query heads inside the timed path
-    # (recurrentgemma's band once in float32 too, held at 1e-4)
+    # kv heads expanded to the query heads inside the timed path; each
+    # band in float32 too, held at 1e-4 (gemma3's short band weighs a
+    # block's prologue and epilogue most)
     T9 = SHAPES["prefill_32k"].seq_len
     for arch, dtype in (("recurrentgemma-9b", None),
                         ("recurrentgemma-9b", torch.float32),
-                        ("gemma3-1b", None)):
+                        ("gemma3-1b", None), ("gemma3-1b", torch.float32)):
         cfg = get_config(arch)
         dtype = dtype or cfg.compute_dtype
         q = randn((1, T9, cfg.n_heads, cfg.hd), dtype)

@@ -18,15 +18,21 @@ the tile sizes are the kernel's own and the wrapper takes none.
   shared-memory stages; ``P`` stays in registers.  TMA needs 16-byte row
   strides, so :func:`padded_head` pads ``D`` to a multiple of 8 (zero
   columns add nothing to ``q·k`` and give zero output columns, which are
-  sliced off) and the original ``D``'s scale is passed; a tensor handed
-  to TMA whose base pointer is not 16-byte aligned raises.
+  sliced off) and the original ``D``'s scale is passed.
 * **float32**, on the CUDA cores (``wgmma``'s float32 mode is TF32, which
-  misses the float32 tolerance): 64-row query tiles staged in shared
-  memory as float32, a register tile of outputs per thread.
+  misses the float32 tolerance): 64-row query tiles; 16-byte ``cp.async``
+  loads of K and V take turns in two shared-memory stages, so each lands
+  while the other product runs; each thread keeps 8 x 8 register blocks
+  (scores over a quarter of ``d``, added across lanes by shuffles, and
+  outputs at D = 256) read from shared memory as 16-byte vectors, with
+  the softmax statistics in registers.  :func:`padded_head` pads ``D`` to
+  a multiple of 4.
 
-On CPU tensors the wrapper runs the plain version; on CUDA tensors it
-launches the kernel or raises.  ``D`` is at most 256 (the kernels keep a
-query tile's float32 accumulators in registers).
+Both kernels need 16-byte aligned base pointers: a tensor whose base is
+not raises (a padded copy is aligned).  On CPU tensors the wrapper runs
+the plain version; on CUDA tensors it launches the kernel or raises.
+``D`` is at most 256 (the kernels keep a query tile's float32
+accumulators in registers).
 """
 from __future__ import annotations
 
@@ -38,8 +44,9 @@ from repro_torch.kernels import native, ref
 #: query tile rows of the kernel for each precision (key tiles: 64)
 QUERY_TILES = {torch.float32: 64, torch.bfloat16: 128}
 MAX_HEAD_DIM = 256
-#: TMA's row strides are multiples of 16 bytes: 8 bf16
-ALIGN = 8
+#: the kernels' rows are whole 16-byte copies (TMA in bf16, cp.async in
+#: float32): 8 bf16 or 4 float32 values
+ALIGN = {torch.float32: 4, torch.bfloat16: 8}
 
 
 def local_attn_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -51,8 +58,8 @@ def local_attn_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def padded_head(D: int, dtype: torch.dtype) -> int:
     """The head size the kernel in ``dtype`` takes: ``D`` rounded up to a
-    multiple of :data:`ALIGN` for bf16, unchanged for float32."""
-    return -(-D // ALIGN) * ALIGN if dtype == torch.bfloat16 else D
+    multiple of :data:`ALIGN`'s entry for ``dtype``."""
+    return -(-D // ALIGN[dtype]) * ALIGN[dtype]
 
 
 def local_attn_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -76,13 +83,13 @@ def local_attn_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"window must be >= 1, got {window}")
     scale = D ** -0.5 if scale is None else float(scale)
     Dp = padded_head(D, q.dtype)
-    if q.dtype == torch.bfloat16:
-        if Dp != D:
-            q, k, v = (F.pad(t, (0, Dp - D)) for t in (q, k, v))
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            if t.data_ptr() % 16:
-                raise ValueError(f"local_attn: {name}'s base pointer is not "
-                                 f"16-byte aligned (TMA needs it)")
+    if Dp != D:
+        q, k, v = (F.pad(t, (0, Dp - D)) for t in (q, k, v))
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"local_attn: {name}'s base pointer is not "
+                             f"16-byte aligned (the kernels' 16-byte copies "
+                             f"need it)")
     out = torch.empty_like(q)
     native.check_grid(-(-T // QUERY_TILES[q.dtype]), BH)
     if BH * T:

@@ -629,6 +629,8 @@ def test_grouped_matmul_bf16_misaligned_base_raises_or_pads(cuda):
     # D = 160 leaves a 64-column box wholly past D (zeroed, never loaded)
     (2, 150, 8, 40), (2, 150, 36, 70), (1, 200, 96, 64), (1, 260, 200, 100),
     (1, 150, 160, 60),
+    # heads no 16-byte row holds whole: float32 pads D to a multiple of 4
+    (2, 150, 37, 70), (1, 70, 3, 10), (1, 130, 254, 65),
     (5, 140, 64, 30),       # BH = 5
 ])
 @pytest.mark.parametrize("dtype", LM_DTYPES)
@@ -654,6 +656,48 @@ def test_local_attn_bf16_window_one_is_v(cuda, BH, T, D):
     got = local_attn.local_attn_kernel(q, k, v, 1)
     torch.cuda.synchronize()
     assert torch.equal(got, v)
+
+
+@pytest.mark.parametrize("BH,T,D", [(2, 300, 64), (1, 200, 256),
+                                    (3, 130, 37)])
+def test_local_attn_f32_window_one_is_v(cuda, BH, T, D):
+    """Float32 with the diagonal only: p is exp(0) = 1, l is 1 and every
+    other key adds 0 * v, so the output is ``v`` bit for bit: a misplaced
+    Q, K, P or V fragment or output column shows."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v = (_randn(gen, (BH, T, D), torch.float32, cuda)
+               for _ in range(3))
+    got = local_attn.local_attn_kernel(q, k, v, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, v)
+
+
+def test_local_attn_f32_gives_the_same_bits_twice(cuda):
+    """Float32 sums in ascending d and key order within a thread and over
+    a row's lanes in a fixed tree: two calls give the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (_randn(gen, (2, 1000, 256), torch.float32, cuda)
+               for _ in range(3))
+    first = local_attn.local_attn_kernel(q, k, v, 300)
+    second = local_attn.local_attn_kernel(q, k, v, 300)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
+
+
+def test_local_attn_f32_misaligned_base_raises_or_pads(cuda):
+    """Float32's 16-byte cp.async: a base pointer off 16 bytes raises;
+    when D needs padding (a multiple of 4) the padded copy is aligned."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    BH, T, D = 2, 70, 64
+    flat = _randn(gen, (BH * T * D + 1,), torch.float32, cuda)
+    k, v = (_randn(gen, (BH, T, D), torch.float32, cuda) for _ in range(2))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        local_attn.local_attn_kernel(flat[1:].view(BH, T, D), k, v, 20)
+    q6 = flat[1:1 + BH * T * 62].view(BH, T, 62)   # D = 62: padded to 64
+    k6, v6 = k[..., :62].contiguous(), v[..., :62].contiguous()
+    got = local_attn.local_attn_kernel(q6, k6, v6, 20)
+    torch.cuda.synchronize()
+    _close(got, local_attn.local_attn_plain(q6, k6, v6, 20), torch.float32)
 
 
 def test_local_attn_bf16_gives_the_same_bits_twice(cuda):

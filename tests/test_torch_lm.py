@@ -505,6 +505,96 @@ def test_local_attn_bf16_kernel_walk_matches_plain(T, D, window):
            _rel(BF16))
 
 
+def _local_attn_f32_walk(q, k, v, window):
+    """K9 float32's order on the card, in plain PyTorch: ``D`` zero-padded
+    to :func:`padded_head`'s multiple of 4 (the original ``D``'s scale),
+    64-row query tiles walking the 64-row key tiles from the one holding
+    ``max(0, q0 - window + 1)`` to the one holding ``q1 - 1``.  ``Q Kᵀ``
+    is summed per quarter of d (quads ds, ds + 4, ...) and the quarters
+    added as the lanes' shuffles add them: row ``r`` of a warp's 8 is
+    owned by ``ds = r % 8 // 2`` and gets ``(s[ds] + s[ds ^ 2]) + (s[ds ^
+    1] + s[ds ^ 3])``.  A warp's 8 rows skip the mask on a tile they hold
+    whole, by the kernel's integer test, checked against the mask here.
+    Online softmax from ``m = -1e30``: ``p = exp(s - m_new)`` (0 outside
+    the band), ``l = alpha l + sum p``, ``acc = alpha acc + p v``, then
+    ``acc / max(l, 1e-30)``."""
+    BH, T, D = q.shape
+    Dp = padded_head(D, torch.float32)
+    window = min(window, T)
+    zeros = torch.zeros(BH, 64, Dp)
+
+    def tiles(t, scale=1.0):
+        t = torch.nn.functional.pad(t.float() * scale, (0, Dp - D))
+        return torch.cat([t, zeros], 1)
+
+    qs, kf, vf = tiles(q, D ** -0.5), tiles(k), tiles(v)
+    quads = torch.arange(Dp).view(-1, 4)
+    cols = [quads[ds::4].reshape(-1) for ds in range(4)]
+    own = torch.arange(64) % 8 // 2                  # each row's lane ds
+    order = torch.stack([own, own ^ 2, own ^ 1, own ^ 3])
+    out = torch.empty(BH, T, D)
+    for q0 in range(0, T, 64):
+        q1 = min(q0 + 64, T)
+        kb0, kb1 = max(0, q0 - window + 1) // 64, (q1 - 1) // 64
+        rows = torch.arange(q0, q0 + 64)
+        m = torch.full((BH, 64), -1e30)
+        l = torch.zeros(BH, 64)
+        o = torch.zeros(BH, 64, Dp)
+        for kb in range(kb0, kb1 + 1):
+            k0 = kb * 64
+            d = rows[:, None] - torch.arange(k0, k0 + 64)[None]
+            band = (d >= 0) & (d < window)
+            part = torch.stack([qs[:, q0:q0 + 64, c] @
+                                kf[:, k0:k0 + 64, c].mT for c in cols])
+            pick = [part[order[x], :, torch.arange(64)].transpose(0, 1)
+                    for x in range(4)]
+            s = (pick[0] + pick[1]) + (pick[2] + pick[3])
+            for w in range(8):
+                w0 = q0 + 8 * w
+                whole = k0 + 63 <= w0 and k0 > w0 + 7 - window
+                assert whole == bool(band[8 * w:8 * w + 8].all())
+            s = torch.where(band, s, -1e30)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.where(band, torch.exp(s - m_new[..., None]), 0.0)
+            alpha = torch.exp(m - m_new)
+            l = alpha * l + p.sum(-1)
+            o = alpha[..., None] * o + p @ vf[:, k0:k0 + 64]
+            m = m_new
+        res = o / l.clamp(min=1e-30)[..., None]
+        out[:, q0:q1] = res[:, :q1 - q0, :D]
+    return out
+
+
+@pytest.mark.parametrize("T,D,window", [
+    (63, 8, 63), (64, 16, 64), (65, 37, 65), (127, 40, 50), (129, 36, 1),
+    (200, 8, 8), (257, 13, 129), (300, 64, 63), (300, 20, 400),
+    (40, 3, 1000),
+])
+def test_local_attn_f32_kernel_walk_matches_plain(T, D, window):
+    """The float32 CUDA-core kernel's tile walk, its quarter-of-d sums and
+    their shuffle order, and its whole-tile test, against the plain
+    version and the JAX oracle (``1e-4 * max(1, max|want|)``, float32), at
+    lengths on both sides of a 64-row tile, windows on both sides of one
+    and of a warp's 8 rows, window 1, a window longer than ``T``, and
+    heads the kernel pads to a multiple of 4."""
+    (jq, jk, jv), (q, k, v) = _arrays(np.float32, *[(1, T, 2, D)] * 3,
+                                      seed=T + D + window)
+    folded = [t[0].transpose(0, 1).contiguous() for t in (q, k, v)]
+    got = _local_attn_f32_walk(*folded, window)
+    _close(got, local_attn_plain(*folded, window), 1e-4)
+    _close(got.transpose(0, 1)[None],
+           jops.local_attn(jq, jk, jv, window, use_pallas=False), 1e-4)
+
+
+def test_local_attn_f32_pads_heads_to_whole_16_byte_rows():
+    """The float32 kernel's ``cp.async`` copies whole 16-byte rows: the
+    wrapper pads ``D`` to a multiple of 4 (bf16's TMA to 8)."""
+    assert [padded_head(D, torch.float32) for D in (1, 4, 37, 254, 256)] \
+        == [4, 4, 40, 256, 256]
+    assert [padded_head(D, torch.bfloat16) for D in (1, 37, 254)] == \
+        [8, 40, 256]
+
+
 # --------------------------------------------------------------------- #
 # precisions per kernel
 # --------------------------------------------------------------------- #
