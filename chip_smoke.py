@@ -35,7 +35,8 @@ any failure exits non-zero):
    tensor of FROSTT nips's shape (2482 x 2862 x 14036 x 17, 3,101,609
    nonzeros), each against ``torch``.
 6. The paper kernels through ``kernels/ops.py`` on the 16 M tensor:
-   ``mttkrp`` (K5, block 256), ``ttmc_fiber`` (K6, block 128) and
+   ``mttkrp`` (K5 over its work items, then the combine of their
+   partial rows; block 256), ``ttmc_fiber`` (K6, block 128) and
    ``tttp`` (K7, block 512), each against the ``torch`` engine's result.
 7. The LM kernels through ``kernels/ops.py``, at the widths of
    ``repro_torch.configs``, on data drawn from ``--seed`` by a
@@ -63,17 +64,18 @@ time for a kernel than the sum of its launches' bounds (the profiler's
 clock drifts), is taken again with twice the idle padding around the
 traced call (from 0.25 s for each path), and the run fails after six
 such traces.  The fused chain on ``cuda`` launches K3 over the chain's
-work items and the combine of their partial rows.  Per kernel, on the
+work items and the combine of their partial rows; ``ops.mttkrp`` K5
+over its own items and the combine of theirs.  Per kernel, on the
 inputs the path gave it: the kernel against its plain PyTorch version
 (tolerance ``1e-4 * max(1, max|plain|)``: float32 with another
 summation order; for bf16 results, where a float32 sum in another order
 can move a value across a bf16 rounding boundary, element by element the
 smaller of ``1e-2 * max(1, max|plain|)`` and ``2**-7 * |plain| + 2**-4
 * rms(plain)``: :func:`max_err`), kernel / plain / library-call times,
-for every kernel with a library call also its time and the library
-call's over ten calls back to back (``ms_back_to_back``,
-``library_ms_back_to_back``: the host's work to launch one call then
-overlaps the device's work on the one before), achieved rates
+the kernel's time and the library call's over ten calls back to back
+(``ms_back_to_back``, ``library_ms_back_to_back``: the host's work to
+launch one call then overlaps the device's work on the one before),
+achieved rates
 (``achieved_tflop_s``, ``achieved_tb_s``; a ``TENSOR_CORES`` line beside
 the bound for K8 and K9 in bf16, on wgmma, and a ``CUDA_CORES`` line for
 K8 and K9 in float32, their share of the float32 peak beside the library
@@ -392,7 +394,8 @@ def chain_expr(ir) -> str:
 # every module that calls the segment-combine kernel, and what it sums
 COMBINE_CALLERS = {"repro_torch.core.executor": "segment sum",
                    "repro_torch.kernels.codegen.lower_gpu": "split-K",
-                   "repro_torch.kernels.codegen.stages": "K3 items"}
+                   "repro_torch.kernels.codegen.stages": "K3 items",
+                   "repro_torch.kernels.paper": "K5 items"}
 
 
 def recording_combines(sink: dict, calls: collections.Counter):
@@ -782,17 +785,27 @@ def paper_entries(captured: dict, calls: collections.Counter) -> list:
     """Each captured K5-K7 call, as :func:`stage_entries`."""
     import torch
     from repro_torch.kernels import native, paper
+    from repro_torch.kernels.codegen.ir import chain_items
     out = []
     for name, (args, kwargs) in captured.items():
         kern = getattr(paper, name)
         plain = getattr(paper, name + "_plain")
+        launch_work = None
         if name == "mttkrp_kernel":
+            # the kernel over the work items writes one partial row an
+            # item; the combine reads them back and writes the output
             vals, bg, cg, mask, block_ptr, nseg, block = args
             P, R = bg.shape
             isz = bg.element_size()
+            items = chain_items(block_ptr, paper.MTTKRP_ITEM_BLOCKS)
+            part_bytes = items.nitems * R * isz
             nbytes = (P * isz + 2 * P * R * isz + P * 4
-                      + block_ptr.numel() * 8 + nseg * R * isz)
+                      + items.item_block.numel() * 8 + part_bytes)
             ops, lib = 3 * P * R + P, None
+            launch_work = (nbytes, ops)
+            nbytes += (block_ptr.numel() * 8 + part_bytes
+                       + items.item_ptr.numel() * 8 + nseg * R * isz)
+            ops += items.nitems * R
             stem, label = "mttkrp", f"({P}, {R}) -> ({nseg}, {R})"
         elif name == "ttmc_kernel":
             ug, xf, block_ptr, nseg, block = args
@@ -818,7 +831,8 @@ def paper_entries(captured: dict, calls: collections.Counter) -> list:
         out.append(Entry(stem, native.KERNELS[stem].name, label, "ops",
                          lambda kern=kern, a=args, k=kwargs: kern(*a, **k),
                          lambda plain=plain, a=args: plain(*a),
-                         lib, nbytes, ops, args[1].dtype, calls[name]))
+                         lib, nbytes, ops, args[1].dtype, calls[name],
+                         launch_work))
     return out
 
 
@@ -858,11 +872,11 @@ def measure(entries: list, spec_name: str) -> list[dict]:
                "peak": peak_name, "library_ms": lib_ms, "bytes": nbytes,
                "ops": ops, "achieved_tflop_s": ops / ms / 1e9,
                "achieved_tb_s": nbytes / ms / 1e9}
-        # beside a library call, both again over ten calls back to back
-        rec["ms_back_to_back"], rec["library_ms_back_to_back"] = (
-            (time_ms(kern, reps=3, warmup=1, calls=10),
-             time_ms(lib, reps=3, warmup=1, calls=10))
-            if lib is not None else (None, None))
+        # again over ten calls back to back, and the library call so
+        rec["ms_back_to_back"] = time_ms(kern, reps=3, warmup=1, calls=10)
+        rec["library_ms_back_to_back"] = (
+            time_ms(lib, reps=3, warmup=1, calls=10)
+            if lib is not None else None)
         log("KERNEL_PHASE " + json.dumps(rec))
         if stem in MATMUL_STEMS and dtype == torch.bfloat16:
             log(f"TENSOR_CORES {name} {stage}: {ops / ms / 1e9!r} TFLOP/s "
@@ -1025,7 +1039,9 @@ def main(argv=None) -> int:
                                                reference_execute,
                                                segment_sum)
         from repro_torch.core.planner import plan
-        from repro_torch.kernels import native, ops
+        from repro_torch.kernels import native, ops, paper
+        from repro_torch.kernels.codegen.ir import chain_items
+        from repro_torch.kernels.segment import segment_ptr
         from repro_torch.sparse import build_csf, random_sparse
     except ImportError as e:
         print(f"chip_smoke: the port is not here ({e})", file=sys.stderr)
@@ -1295,7 +1311,13 @@ def main(argv=None) -> int:
     rows1 = arrays.fiber_coord[1][0]
     got = drv.drive("ops.mttkrp", lambda: ops.mttkrp(csf, b, c,
                                                      layout=lay5),
-                    expect=("mttkrp",), measure_as="ops")
+                    expect=("mttkrp", "combine"), measure_as="ops")
+    items5 = chain_items(torch.from_numpy(segment_ptr(lay5.block_seg,
+                                                      lay5.nseg)),
+                         paper.MTTKRP_ITEM_BLOCKS)
+    log(f"K5 ops.mttkrp: block {lay5.block}, P = {lay5.padded_len} padded "
+        f"rows ({lay5.nblocks} blocks) for {lay5.nseg} segments; nitems "
+        f"{items5.nitems}, cap {items5.cap}")
     check("ops.mttkrp vs MTTKRP torch", got, torch_out["MTTKRP"][rows1])
     f3 = factors["TTMc3"]
     u_name, v_name = (t.name for t in specs["TTMc3"].inputs

@@ -17,9 +17,18 @@
 // elements read (16 for R = S = 16: still far below the card's ~20
 // operations per byte in float32).  So each kernel reads every operand
 // element once, with neighbouring threads on neighbouring elements, and
-// writes each output element once.  No atomics: a segment's rows are
-// summed by one thread block in a fixed order, so results are the same
-// on every run.
+// writes each output element once.  No atomics: every sum is taken in a
+// fixed order, so results are the same on every run.
+//
+// K5 runs over work items rather than segments.  The patterns it meets
+// are skewed (at nell-2's shape one mode-0 slice of 714 holds about 1.1 M
+// of the 16 M nonzeros), and one thread block per segment left one SM
+// streaming that slice alone while the others idled.  So each segment's
+// block range is cut, from the layout alone (ir.chain_items with a fixed
+// cap, kernels/paper.py), into items of at most a fixed number of
+// consecutive blocks; one thread block sums one item into a partial row,
+// and the segment combine (stage_kernels.cu) adds each segment's partial
+// rows in ascending item order.
 //
 // Every entry point launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError().
@@ -29,39 +38,112 @@
 
 namespace spttn {
 
-// K5: out[s, r] = sum over the rows n of segment s of
-// (vals[n] * mask[n]) * bg[n, r] * cg[n, r].  One thread block of 1024
-// threads per (segment, column tile): threadIdx.x takes a column,
-// threadIdx.y a lane of rows; each lane sums its rows in ascending
-// order, then a fixed shared-memory tree adds the lanes.  A block has as
-// many row lanes as it can (1024 / tx), because a skewed pattern puts a
-// large share of the rows in one segment, which one block walks alone.
-template <typename T>
-__global__ void mttkrp_kernel(const T* __restrict__ vals,
-                              const T* __restrict__ bg,
-                              const T* __restrict__ cg,
-                              const float* __restrict__ mask,
-                              const long long* __restrict__ block_ptr,
-                              int block, int R, T* __restrict__ out) {
-  extern __shared__ unsigned char smem[];
-  T* red = reinterpret_cast<T*>(smem);
-  const long long s = blockIdx.x;
-  const int r = blockIdx.y * blockDim.x + threadIdx.x;
-  T acc = T(0);
-  if (r < R) {
-    const long long n1 = block_ptr[s + 1] * block;
-    for (long long n = block_ptr[s] * block + threadIdx.y; n < n1;
-         n += blockDim.y)
-      acc += (vals[n] * T(mask[n])) * bg[n * R + r] * cg[n * R + r];
+// K5, the order-3 MTTKRP leaf, over work items: partials[i, r] = sum over
+// the rows n of item i (blocks [item_block[i], item_block[i+1])) of
+// (vals[n] * mask[n]) * bg[n, r] * cg[n, r].  Bound by bytes: it reads
+// 2 R + 2 elements a row for 3 R operations.  One 256-thread block per
+// (item, column tile).  threadIdx.x takes a vector of V columns (16 bytes:
+// float4, double2; V = 1 where R is not a multiple of the vector or a base
+// is not 16-byte aligned), threadIdx.y one of the block's row lanes: lane
+// y takes rows y, y + lanes, ... of the item in ascending order, and keeps
+// kMttkrpRows rows' loads of bg, cg, vals and mask in flight before it
+// adds them (32 KB a block at R = 64 in float32).  A fixed shared-memory
+// tree then adds the lanes, and the block writes the item's partial row.
+constexpr int kMttkrpThreads = 256;
+constexpr int kMttkrpRows = 4;
+
+template <typename T, int V>
+struct alignas(sizeof(T) * V) Pack {
+  T x[V];
+};
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kMttkrpThreads)
+    mttkrp_kernel(const T* __restrict__ vals, const T* __restrict__ bg,
+                  const T* __restrict__ cg, const float* __restrict__ mask,
+                  const long long* __restrict__ item_block, int block, int R,
+                  T* __restrict__ partials) {
+  using P = Pack<T, V>;
+  __shared__ P red[kMttkrpThreads];
+  const int nvec = R / V;
+  const int c = blockIdx.y * blockDim.x + threadIdx.x;
+  const long long item = blockIdx.x;
+  const long long n1 = item_block[item + 1] * block;
+  const int lanes = blockDim.y;
+  P acc;
+#pragma unroll
+  for (int i = 0; i < V; ++i) acc.x[i] = T(0);
+  if (c < nvec) {
+    const P* b = reinterpret_cast<const P*>(bg) + c;
+    const P* d = reinterpret_cast<const P*>(cg) + c;
+    for (long long n = item_block[item] * block + threadIdx.y; n < n1;
+         n += (long long)lanes * kMttkrpRows) {
+      P bv[kMttkrpRows], cv[kMttkrpRows];
+      T w[kMttkrpRows];
+#pragma unroll
+      for (int k = 0; k < kMttkrpRows; ++k) {
+        const long long m = n + (long long)k * lanes;
+        if (m < n1) {
+          bv[k] = b[m * nvec];
+          cv[k] = d[m * nvec];
+          w[k] = vals[m] * T(mask[m]);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kMttkrpRows; ++k) {
+        if (n + (long long)k * lanes < n1) {
+#pragma unroll
+          for (int i = 0; i < V; ++i)
+            acc.x[i] += w[k] * bv[k].x[i] * cv[k].x[i];
+        }
+      }
+    }
   }
   const int me = threadIdx.y * blockDim.x + threadIdx.x;
   red[me] = acc;
   __syncthreads();
-  for (int h = blockDim.y / 2; h > 0; h >>= 1) {
-    if (threadIdx.y < h) red[me] += red[me + h * blockDim.x];
+  for (int h = lanes / 2; h > 0; h >>= 1) {
+    if (threadIdx.y < h) {
+      const P o = red[me + h * blockDim.x];
+#pragma unroll
+      for (int i = 0; i < V; ++i) acc.x[i] += o.x[i];
+      red[me] = acc;
+    }
     __syncthreads();
   }
-  if (threadIdx.y == 0 && r < R) out[s * R + r] = red[threadIdx.x];
+  if (threadIdx.y == 0 && c < nvec)
+    reinterpret_cast<P*>(partials + item * R)[c] = acc;
+}
+
+// K5's launch: threadIdx.x over the row's vectors (the smallest power of
+// two covering them, at most 256), the rest of the 256 threads row lanes.
+template <typename T, int V>
+int mttkrp_launch(const void* vals, const void* bg, const void* cg,
+                  const void* mask, const void* item_block, long long nitems,
+                  int block, int R, void* partials, cudaStream_t stream) {
+  const int nvec = R / V;
+  int tx = 1;
+  while (tx < nvec && tx < kMttkrpThreads) tx *= 2;
+  const dim3 threads(tx, kMttkrpThreads / tx);
+  const dim3 grid((unsigned)nitems, (nvec + tx - 1) / tx);
+  mttkrp_kernel<T, V><<<grid, threads, 0, stream>>>(
+      (const T*)vals, (const T*)bg, (const T*)cg, (const float*)mask,
+      (const long long*)item_block, block, R, (T*)partials);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int mttkrp_entry(const void* vals, const void* bg, const void* cg,
+                 const void* mask, const void* item_block, long long nitems,
+                 int block, int R, void* partials, cudaStream_t stream) {
+  constexpr int V = 16 / sizeof(T);
+  const bool vec = R % V == 0 &&
+                   ((uintptr_t)bg | (uintptr_t)cg | (uintptr_t)partials) %
+                           16 == 0;
+  return vec ? mttkrp_launch<T, V>(vals, bg, cg, mask, item_block, nitems,
+                                   block, R, partials, stream)
+             : mttkrp_launch<T, 1>(vals, bg, cg, mask, item_block, nitems,
+                                   block, R, partials, stream);
 }
 
 // K6: out[s, r, t] = sum over the fibers f of segment s of
@@ -130,15 +212,10 @@ __global__ void tttp_kernel(const T* __restrict__ vals,
 #define SPTTN_PAPER_ENTRY_POINTS(T, SUFFIX)                                    \
   extern "C" int spttn_mttkrp_##SUFFIX(                                        \
       const void* vals, const void* bg, const void* cg, const void* mask,      \
-      const void* block_ptr, long long nseg, int block, int R, int tx,         \
-      void* out, void* stream) {                                               \
-    const dim3 threads(tx, 1024 / tx);                                         \
-    const dim3 grid((unsigned)nseg, (R + tx - 1) / tx);                        \
-    spttn::mttkrp_kernel<T><<<grid, threads, 1024 * sizeof(T),                 \
-                       (cudaStream_t)stream>>>(                                \
-        (const T*)vals, (const T*)bg, (const T*)cg, (const float*)mask,        \
-        (const long long*)block_ptr, block, R, (T*)out);                       \
-    return (int)cudaGetLastError();                                            \
+      const void* item_block, long long nitems, int block, int R,              \
+      void* partials, void* stream) {                                          \
+    return spttn::mttkrp_entry<T>(vals, bg, cg, mask, item_block, nitems,      \
+                                  block, R, partials, (cudaStream_t)stream);   \
   }                                                                            \
   extern "C" int spttn_ttmc_##SUFFIX(                                          \
       const void* ug, const void* xf, const void* block_ptr, long long nseg,   \

@@ -104,7 +104,7 @@ _SIGNATURES = {
     "combine": [_P, _P, _L, _I, _P, _P],
     "chain": [_P, _L, _P, _L, _P, _I, _P, _P, _P, _I, _I, _I, _P, _L, _P,
               _P, _L, _I, _I, _P, _P],
-    "mttkrp": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _P, _P],
+    "mttkrp": [_P, _P, _P, _P, _P, _L, _I, _I, _P, _P],
     "ttmc": [_P, _P, _P, _L, _I, _I, _I, _I, _P, _P],
     "tttp": [_P, _P, _P, _P, _L, _I, _I, _P, _P],
     "grouped_matmul": [_P, _P, _L, _I, _I, _I, _P, _P],

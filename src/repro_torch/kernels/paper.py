@@ -9,9 +9,16 @@ owns blocks ``[block_ptr[s], block_ptr[s+1])`` of ``block`` rows each.
 
 * **K5** :func:`mttkrp_kernel` replaces ``src/repro/kernels/mttkrp.py:41``
   ``mttkrp_pallas``: ``out[s, :] += vals*mask*B[j]*C[k]`` over the
-  segment's rows.  One 1024-thread block per (segment, column tile)
-  walks the segment's rows in lanes that meet in a fixed tree.  Hot
-  spot: the skewed slice sizes leave a few segments to a few blocks.
+  segment's rows.  The skewed slice sizes (one mode-0 slice can hold
+  most of the rows) would leave a segment's walk to one thread block, so
+  each segment's blocks are cut into work items of at most
+  :data:`MTTKRP_ITEM_BLOCKS` consecutive blocks
+  (:func:`~repro_torch.kernels.codegen.ir.chain_items`, a function of the
+  layout alone).  One 256-thread block sums an item's rows into a
+  partial row, 16-byte column vectors a thread and several rows' loads
+  in flight, its row lanes met in a fixed tree; then the segment combine
+  adds each segment's partial rows in item order.  Two launches, no
+  atomics, the same bits on every call.
 * **K6** :func:`ttmc_kernel` replaces ``src/repro/kernels/ttmc.py:33``
   ``ttmc_pallas``: ``out[s] += ugᵀ·xf`` per block of fibers, giving
   ``(nseg, R, S)``, the product written in the kernel's body.
@@ -26,7 +33,14 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import native, ref
-from repro_torch.kernels.codegen.ir import accumulator_type
+from repro_torch.kernels.codegen.ir import accumulator_type, chain_items
+from repro_torch.kernels.segment import segment_combine
+
+#: K5's work items hold at most this many consecutive blocks of one
+#: segment: 4,096 rows at block 256, about 2 MB of ``bg`` and ``cg`` in
+#: float32 at R = 64.  Fixed, so the cut (and every float sum's order) is
+#: the same on every card.
+MTTKRP_ITEM_BLOCKS = 16
 
 
 def _slot_segments(block_ptr: torch.Tensor, block: int,
@@ -54,7 +68,8 @@ def mttkrp_kernel_plain(vals, bg, cg, mask, block_ptr, nseg: int,
 
 def mttkrp_kernel(vals, bg, cg, mask, block_ptr, nseg: int,
                   block: int) -> torch.Tensor:
-    """K5: vals/mask ``(P,)``, bg/cg ``(P, R)`` -> ``(nseg, R)``."""
+    """K5: vals/mask ``(P,)``, bg/cg ``(P, R)`` -> ``(nseg, R)``: the
+    kernel over the work items, then the combine of their partial rows."""
     if vals.device.type == "cpu":
         return mttkrp_kernel_plain(vals, bg, cg, mask, block_ptr, nseg,
                                    block)
@@ -65,13 +80,13 @@ def mttkrp_kernel(vals, bg, cg, mask, block_ptr, nseg: int,
     native.check_cuda_tensors(mask, dtype=torch.float32)
     if vals.shape != (P,) or cg.shape != (P, R) or mask.shape != (P,):
         raise ValueError("mttkrp_kernel: vals/mask (P,), bg/cg (P, R)")
-    out = torch.empty((nseg, R), dtype=dtype, device=bg.device)
-    tx = native.column_threads(R)
-    native.check_grid(nseg, -(-R // tx))
-    if nseg * R:
+    items = chain_items(block_ptr, MTTKRP_ITEM_BLOCKS)
+    partials = torch.empty((items.nitems, R), dtype=dtype, device=bg.device)
+    native.check_grid(items.nitems, -(-R // 256))
+    if items.nitems * R:
         native.launch("mttkrp", dtype, bg.device, vals, bg, cg, mask,
-                      block_ptr, nseg, block, R, tx, out)
-    return out
+                      items.item_block, items.nitems, block, R, partials)
+    return segment_combine(partials, items.item_ptr, nseg)
 
 
 def ttmc_kernel_plain(ug, xf, block_ptr, nseg: int,

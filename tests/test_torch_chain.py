@@ -39,6 +39,7 @@ from repro_torch.core import executor as tex  # noqa: E402
 from repro_torch.core import planner as tplanner  # noqa: E402
 from repro_torch.core import spec as TS  # noqa: E402
 from repro_torch.kernels.codegen import StagePlanExecutor  # noqa: E402
+from repro_torch.kernels import paper  # noqa: E402
 from repro_torch.kernels.codegen import stages  # noqa: E402
 from repro_torch.kernels.codegen.ir import (  # noqa: E402
     ITEM_MIN_BLOCKS, ITEM_TARGET, ChainLayout, chain_items, item_cap)
@@ -320,12 +321,14 @@ def test_item_walk_matches_reference_with_cuts_inside_segments(
     _close(walked, plain2)
 
 
-@pytest.mark.parametrize("cap", [1, 2, 3, 64, None])
+@pytest.mark.parametrize("cap", [1, 2, 3, 64, None,
+                                 paper.MTTKRP_ITEM_BLOCKS])
 def test_chain_items_cover_every_block_once_in_order(cap):
     """The item table covers every block exactly once, in order, never
     crosses an outermost segment, holds at most ``cap`` blocks an item
     and as few items as that allows; a segment with no blocks owns no
-    item.  The default cap depends on the block count alone."""
+    item.  The default cap depends on the block count alone.  K5 cuts
+    its segments at ``paper.MTTKRP_ITEM_BLOCKS``."""
     rng = np.random.default_rng(7)
     counts = rng.integers(0, 300, 40)
     counts[[0, 5, 6, 39]] = 0

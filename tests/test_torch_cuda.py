@@ -2,7 +2,9 @@
 (K1, K2, K4 and the combine; K2's scalar path, global tables and
 float64 table-order sums; K3, the fused chain, on 2- and 3-level
 chains over work items from one block to the default cut, the same
-bits run to run; K5-K7, the paper kernels; K8-K11, the LM kernels, in
+bits run to run; K5-K7, the paper kernels, K5 over work items on a
+skewed pattern on its vector and scalar paths, the same bits twice;
+K8-K11, the LM kernels, in
 float32 and bfloat16 at sizes no tile or chunk divides, K8's float32
 path at full tiles, ragged edges, D = 0, on misaligned bases (its
 scalar path) and the same bits call to call, K8's bf16 tensor-core
@@ -480,11 +482,54 @@ def test_paper_kernels_match_plain(cuda, dtype):
     torch.cuda.synchronize()
     counts = native.launch_counts()
     assert (counts["mttkrp"], counts["ttmc"], counts["tttp"]) == (1, 1, 1)
+    assert counts["combine"] == 1                 # K5's items' partial rows
     # each wrapper against its own plain version on the same inputs
     gather, mask, ptr = ops.layout_arrays(lay, cuda)
     _close(paper.ttmc_kernel(ug[gather], xf[gather], ptr, lay.nseg, 8),
            paper.ttmc_kernel_plain(ug[gather], xf[gather], ptr, lay.nseg,
                                    8), dtype)
+
+
+def _mttkrp_inputs(dev, dtype, R, offset=0):
+    """K5's inputs on a skewed layout: one segment of 6,667 rows (27
+    items of 16 blocks of 16), others of a few; ``offset`` elements moves
+    ``bg``'s base off 16 bytes."""
+    rng = np.random.default_rng(9)
+    lay = _layout(rng, 20000, 40, 16)
+    P = lay.padded_len
+
+    def up(a):
+        return torch.from_numpy(a).to(dev, dtype)
+
+    big = up(rng.standard_normal(P * R + offset))
+    bg = big[offset:].view(P, R)
+    return (up(rng.standard_normal(P)), bg, up(rng.standard_normal((P, R))),
+            torch.from_numpy(lay.mask).to(dev),
+            torch.from_numpy(segment_ptr(lay.block_seg, lay.nseg)).to(dev),
+            lay.nseg, lay.block)
+
+
+@pytest.mark.parametrize("R,offset", [(64, 0), (33, 0), (64, 1)],
+                         ids=["vector", "R33-scalar", "misaligned-scalar"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_mttkrp_kernel_items_match_plain(cuda, dtype, R, offset):
+    """K5 over its work items, on a pattern where one segment spans many
+    items: on the 16-byte vector path (R = 64) and the scalar path (R =
+    33, or a base off 16 bytes), against its plain version; one launch of
+    the kernel and one of the combine a call, and the same bits on a
+    second call."""
+    args = _mttkrp_inputs(cuda, dtype, R, offset)
+    items = ir.chain_items(args[4], paper.MTTKRP_ITEM_BLOCKS)
+    assert int(items.item_ptr.diff().max()) > 8
+    native.reset_launch_counts()
+    got = paper.mttkrp_kernel(*args)
+    torch.cuda.synchronize()
+    counts = native.launch_counts()
+    assert counts["mttkrp"] == 1 and counts["combine"] == 1
+    _close(got, paper.mttkrp_kernel_plain(*args), dtype)
+    again = paper.mttkrp_kernel(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
 
 
 # --------------------------------------------------------------------- #

@@ -6,7 +6,10 @@
 same seeded inputs, at several block sizes, on a skewed pattern and on
 one with empty mode-0 slices; the layouts are held equal to the
 reference's, and the oracles (``use_kernel=False``) to the reference's
-``use_pallas=False``.
+``use_pallas=False``.  A Python walk of K5's algorithm (work items of at
+most a few blocks, each summed into a partial row in ascending row
+order, the partial rows added per segment in ascending item order)
+stands in for the kernel and is held to the reference too.
 
 Tolerance: float32 ``|port - ref| <= 1e-5 * max(1, max|ref|)``, float64
 ``1e-12`` relative (under ``jax.enable_x64``).
@@ -25,7 +28,10 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.sparse import build_csf as j_build_csf  # noqa: E402
 from repro.sparse import random_sparse as j_random_sparse  # noqa: E402
 from repro.sparse.coo import from_coords as j_from_coords  # noqa: E402
-from repro_torch.kernels import native, ops  # noqa: E402
+from repro_torch.kernels import native, ops, paper  # noqa: E402
+from repro_torch.kernels.codegen.ir import chain_items  # noqa: E402
+from repro_torch.kernels.segment import segment_ptr  # noqa: E402
+from repro_torch.kernels.util import padded_segment_layout  # noqa: E402
 from repro_torch.sparse import build_csf  # noqa: E402
 from repro_torch.sparse.coo import from_coords  # noqa: E402
 
@@ -147,3 +153,84 @@ def test_paper_kernels_float64_match_reference():
     for g, wnt in zip(got, want):
         assert g.dtype == torch.float64
         _close(g, wnt, rel=1e-12)
+
+
+def _mttkrp_item_walk(vals, bg, cg, mask, block_ptr, nseg, block, cap):
+    """K5's algorithm in plain PyTorch: each work item (at most ``cap``
+    consecutive blocks of one segment) sums ``(vals * mask) * bg * cg``
+    over its rows in ascending order into a partial row; each segment
+    adds its items' partial rows in ascending item order (none: zero)."""
+    items = chain_items(block_ptr, cap)
+    ib, ip = items.item_block.tolist(), items.item_ptr.tolist()
+    w = vals * mask.to(vals.dtype)
+    partials = torch.zeros((items.nitems, bg.shape[1]), dtype=bg.dtype)
+    for i in range(items.nitems):
+        for n in range(ib[i] * block, ib[i + 1] * block):
+            partials[i] += w[n] * bg[n] * cg[n]
+    out = torch.zeros((nseg, bg.shape[1]), dtype=bg.dtype)
+    for s in range(nseg):
+        for i in range(ip[s], ip[s + 1]):
+            out[s] += partials[i]
+    return out, items
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("cap", [1, 2])
+@pytest.mark.parametrize("kind", PATTERNS)
+def test_mttkrp_item_walk_matches_reference(kind, cap, dtype, monkeypatch):
+    """K5's work-item walk, with items of at most ``cap`` blocks of 8 rows
+    (so a segment spans several items and, on ``empty-slices``, some own
+    none), stands in for the kernel in ``ops.mttkrp`` and gives the
+    reference's result: float32 against ``mttkrp_pallas`` in interpret
+    mode, float64 against ``use_pallas=False``."""
+    jc, tc = _pattern(kind)
+    b, c = _mats(dtype, (SHAPE[1], 5), (SHAPE[2], 5))
+    seen = []
+
+    def walk(vals, bg, cg, mask, block_ptr, nseg, block):
+        out, items = _mttkrp_item_walk(vals, bg, cg, mask, block_ptr, nseg,
+                                       block, cap)
+        seen.append((items, block_ptr))
+        return out
+
+    monkeypatch.setattr(paper, "mttkrp_kernel", walk)
+    if dtype == np.float64:
+        tc = build_csf(from_coords(tc.coo.coords,
+                                   tc.coo.values.astype(np.float64), SHAPE))
+        with jax.enable_x64(True):
+            jc = j_build_csf(j_from_coords(
+                jc.coo.coords, jc.coo.values.astype(np.float64), SHAPE))
+            want = np.asarray(jops.mttkrp(jc, jnp.asarray(b), jnp.asarray(c),
+                                          use_pallas=False))
+        rel = 1e-12
+    else:
+        want = jops.mttkrp(jc, jnp.asarray(b), jnp.asarray(c), block=8,
+                           use_pallas=True, interpret=True)
+        rel = 1e-5
+    got = ops.mttkrp(tc, torch.from_numpy(b), torch.from_numpy(c), block=8)
+    assert got.dtype == torch.from_numpy(b).dtype
+    _close(got, want, rel=rel)
+    (items, _), = seen
+    assert int(items.item_ptr.diff().max()) > 1   # a segment cut in items
+
+
+@pytest.mark.parametrize("cap", [1, 2, None], ids=["1", "2", "default"])
+def test_mttkrp_item_walk_zeroes_segments_with_no_blocks(cap):
+    """On a layout where one segment spans many items and two own none,
+    K5's walk gives the wrapper's CPU result (its plain version) at
+    float64 and writes zero rows for the segments with no blocks."""
+    # six segments: one of 300 blocks of 8, segments 0 and 3 with none
+    seg = np.repeat(np.arange(6), [0, 300 * 8, 3, 0, 40, 1])
+    lay = padded_segment_layout(seg, 6, 8)
+    P = lay.padded_len
+    vals, = _mats(np.float64, (P,), seed=3)
+    bg, cg = _mats(np.float64, (P, 6), (P, 6), seed=4)
+    args = (torch.from_numpy(vals), torch.from_numpy(bg),
+            torch.from_numpy(cg), torch.from_numpy(lay.mask),
+            torch.from_numpy(segment_ptr(lay.block_seg, lay.nseg)),
+            lay.nseg, lay.block)
+    got, items = _mttkrp_item_walk(*args, cap or paper.MTTKRP_ITEM_BLOCKS)
+    assert int(items.item_ptr.diff().max()) > 1
+    assert not bool(got[0].any()) and not bool(got[3].any())
+    _close(got, paper.mttkrp_kernel(*args), rel=1e-12)
