@@ -19,7 +19,9 @@ any failure exits non-zero):
    either fails the run.
 2. A small tensor (60 x 50 x 40, density 0.01) through every engine and
    strategy (the fused chain included), against the port's numpy
-   Algorithm-2 ``reference_execute``.
+   Algorithm-2 ``reference_execute``; then (2b) K1 over the work items
+   of a skewed layout, on each of its three paths, against its plain
+   version (``K1 items`` lines).
 3. The main path at full size: a synthetic tensor of nell-2's shape
    (12092 x 9184 x 28818) with the generator's FROSTT-like skew and
    16,000,000 nonzeros.  MTTKRP (R=64), TTMc3 (R=S=16) and TTTP3 (R=64)
@@ -130,11 +132,14 @@ MATMUL_STEMS = {"grouped_matmul": "torch.bmm", "local_attn": "SDPA"}
 LM_STEMS = ("grouped_matmul", "local_attn", "wkv6", "rglru")
 # the recurrences, whose every kernel keeps its state in registers or
 # shared memory, K8 in float32, whose threads keep 8 x 8 sums in
-# registers, and K9 in bf16 and in float32, whose O accumulators live in
-# registers (their mangled names): a spill fails the build phase
+# registers, K9 in bf16 and in float32, whose O accumulators live in
+# registers, and K1's outer-product path (kReduceOuter = 2), whose
+# threads keep 4 x 4 sums and four rows' loads in registers (their
+# mangled names): a spill fails the build phase
 NO_SPILL_STEMS = ("wkv6", "rglru")
 NO_SPILL_KERNELS = ("21grouped_matmul_kernelIf", "17local_attn_kernelILi",
-                    "17local_attn_kernelIfLi")
+                    "17local_attn_kernelIfLi", "13reduce_kernelIfLi2E",
+                    "13reduce_kernelIdLi2E")
 # K8 and K9 in bf16 (their mangled names), whose products run on the
 # tensor cores: their machine code must hold wgmma (HGMMA) and TMA loads
 # (UTMALDG), or the build phase fails
@@ -394,7 +399,7 @@ def chain_expr(ir) -> str:
 # every module that calls the segment-combine kernel, and what it sums
 COMBINE_CALLERS = {"repro_torch.core.executor": "segment sum",
                    "repro_torch.kernels.codegen.lower_gpu": "split-K",
-                   "repro_torch.kernels.codegen.stages": "K3 items",
+                   "repro_torch.kernels.codegen.stages": "K1/K3 items",
                    "repro_torch.kernels.paper": "K5 items"}
 
 
@@ -591,11 +596,11 @@ class Entry(NamedTuple):
     the same function or None, and ``nbytes`` and ``ops`` are the work
     of ``kern`` (its ``KERNEL_PHASE`` bound).  The counted run made
     ``calls`` such calls, each one launch of ``stem`` whose own work is
-    ``launch_work`` (``(nbytes, ops)`` when None; K3's wrapper launches
-    the combine too).  ``measured`` False marks a launch that gets no
-    record of its own (a K2 already measured on the other target, the
-    K4 inside the split-K chain): it counts only towards the trace's
-    bound."""
+    ``launch_work`` (``(nbytes, ops)`` when None; the wrappers of K1, K3
+    and K5 launch the combine too).  ``measured`` False marks a launch
+    that gets no record of its own (a K2 already measured on the other
+    target, the K4 inside the split-K chain): it counts only towards the
+    trace's bound."""
 
     stem: str
     name: str
@@ -616,6 +621,10 @@ class Entry(NamedTuple):
         of this call."""
         nbytes, ops = self.launch_work or (self.nbytes, self.ops)
         return bound(nbytes, ops, peak(self.stem, self.dtype)[0])[0]
+
+
+# K1's paths by their code (stages.REDUCE_TABLES, _VECTORS, _OUTER)
+REDUCE_PATHS = ("tables", "vectors", "outer")
 
 
 def chain_entry(ir, args, target: str, calls: int) -> Entry:
@@ -725,31 +734,52 @@ def stage_entries(captured: dict, calls: collections.Counter) -> list:
                              plain, lib, nbytes, 2 * nrows * nterms, dtype,
                              n, measured=target == "hopper"))
             continue
-        tables, block_ptr, mask, padded, dtype = args
+        tables, block_ptr, mask, padded, dtype, items = args
         if target != "hopper":
             out.append(splitk_entry(st, tables, mask, padded, dtype, expr,
                                     target, n))
             continue
-        P = mask.shape[0]
-        isz = torch.empty((), dtype=dtype).element_size()
-
-        def kern(st=st, tables=tables, block_ptr=block_ptr, mask=mask,
-                 padded=padded, dtype=dtype):
-            return stages.run_reduce_stage(st, tables, block_ptr, mask,
-                                           padded, dtype)
-
-        def plain(st=st, block_ptr=block_ptr, mask=mask, padded=padded,
-                  dtype=dtype):
-            return stages.run_reduce_stage_plain(st, block_ptr, mask,
-                                                 padded, dtype)
-
-        nbytes = (stage_nbytes(st, P, isz) + P * 4 + table_nbytes(tables)
-                  + block_ptr.numel() * 8 + st.nseg * w * isz)
-        out.append(Entry("reduce", "K1 reduce", expr, target, kern, plain,
-                         None, nbytes,
-                         2 * P * int(tables.a_idx.numel()) + P * w, dtype,
-                         n))
+        out.append(reduce_entry(st, tables, block_ptr, mask, padded, dtype,
+                                items, expr, target, n))
     return out
+
+
+def reduce_entry(st, tables, block_ptr, mask, padded, dtype, items, expr,
+                 target, calls: int) -> Entry:
+    """A captured K1 call as a :func:`stage_entries` entry: the kernel
+    over the layout's work items, which writes one partial row an item,
+    and the combine that reads them back and writes the output."""
+    import torch
+    from repro_torch.kernels import native
+    from repro_torch.kernels.codegen import stages
+    P = mask.shape[0]
+    isz = torch.empty((), dtype=dtype).element_size()
+    w = st.out_flat_dim
+    part_bytes = items.nitems * w * isz
+    nbytes = (stage_nbytes(st, P, isz) + P * 4 + table_nbytes(tables)
+              + items.item_block.numel() * 8 + part_bytes)
+    ops = 2 * P * int(tables.a_idx.numel()) + P * w
+    launch_work = (nbytes, ops)
+    nbytes += part_bytes + items.item_ptr.numel() * 8 + st.nseg * w * isz
+    ops += items.nitems * w
+    rows, _ = stages.operand_rows(st, padded, P, dtype)
+    path = stages.reduce_launch_path(st, rows)
+    lanes = 256 // native.column_threads(stages.reduce_columns(st, path,
+                                                               isz))
+    log(f"K1 {expr}: path {REDUCE_PATHS[path]}, block {st.block}, P = {P} "
+        f"padded rows for {st.nseg} segments; nitems {items.nitems}, cap "
+        f"{items.cap} blocks, {lanes} row lanes a thread block")
+
+    def kern():
+        return stages.run_reduce_stage(st, tables, block_ptr, mask, padded,
+                                       dtype, items)
+
+    def plain():
+        return stages.run_reduce_stage_plain(st, block_ptr, mask, padded,
+                                             dtype)
+
+    return Entry("reduce", "K1 reduce", expr, target, kern, plain, None,
+                 nbytes, ops, dtype, calls, launch_work)
 
 
 def combine_entries(captured: dict, calls: collections.Counter,
@@ -970,6 +1000,65 @@ class Driver:
         return got
 
 
+def k1_item_checks(dev) -> None:
+    """K1 over the work items of a skewed layout at the main path's block
+    (one segment of 40,000 fibers, cut into many items; one of pad rows
+    alone), on each of its paths, in float32 and float64, against its
+    plain version; the same bits on a second call, one launch of K1 and
+    one of the combine a call."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import native
+    from repro_torch.kernels.codegen import ir, stages
+    from repro_torch.kernels.segment import segment_ptr
+    from repro_torch.kernels.util import padded_segment_layout
+    rng = np.random.default_rng(0)
+    nseg, block, nfib = 64, 128, 120_000
+    seg = np.sort(rng.integers(2, nseg, nfib))
+    seg[:40_000] = 0                       # segment 1: pad rows alone
+    lay = padded_segment_layout(np.sort(seg), nseg, block)
+    ptr = torch.from_numpy(segment_ptr(lay.block_seg, nseg))
+    items = ir.reduce_items(ptr, block)
+    gather = torch.from_numpy(lay.gather).long().to(dev)
+    mask = torch.from_numpy(lay.mask).to(dev)
+    cases = [([("d", (64,), True), ("d", (64,), True)], "d", (64,)),
+             ([("d", (16,), True), ("e", (16,), True)], "de", (16, 16)),
+             ([("de", (3, 4), True), ("e", (4,), False)], "d", (3,))]
+    for ops_, out_subs, out_shape in cases:
+        st = ir.Stage(tuple(ir.StageOperand(*o) for o in ops_), out_subs,
+                      out_shape, True, block, nseg)
+        tables = ir.index_tables(st, dev)
+        for dtype in (torch.float32, torch.float64):
+            padded = [torch.randn((nfib if f else 1, int(np.prod(sh))),
+                                  device=dev, dtype=dtype)
+                      for _, sh, f in ops_]
+            padded = [p[gather] if f else p
+                      for p, (_, _, f) in zip(padded, ops_)]
+            args = (st, tables, ptr.to(dev), mask, padded, dtype,
+                    items.to(dev))
+            native.reset_launch_counts()
+            got = stages.run_reduce_stage(*args)
+            torch.cuda.synchronize()
+            counts = native.launch_counts()
+            path = stages.reduce_launch_path(st, padded)
+            check(f"K1 items {st.expr} {str(dtype)[6:]} "
+                  f"({REDUCE_PATHS[path]})", got,
+                  stages.run_reduce_stage_plain(st, ptr.to(dev), mask,
+                                                padded, dtype))
+            same = torch.equal(got, stages.run_reduce_stage(*args))
+            log(f"K1 items {st.expr} {str(dtype)[6:]}: path "
+                f"{REDUCE_PATHS[path]}, nitems {items.nitems} (segment 0: "
+                f"{int(items.item_ptr[1])}), cap {items.cap} blocks, "
+                f"launches {counts['reduce']} + {counts['combine']}, the "
+                f"same bits on a second call {'ok' if same else 'FAIL'}")
+            if not same or counts["reduce"] != 1 or counts["combine"] != 1:
+                raise AssertionError(f"K1 items {st.expr}: other bits or "
+                                     f"launches {counts}")
+            if bool(got[1].any()):
+                raise AssertionError(f"K1 items {st.expr}: a segment of "
+                                     f"pad rows is not zero")
+
+
 def largest_buffer_bytes(spec, cand, levels, itemsize: int = 4) -> int:
     """The largest array one call of candidate ``cand`` makes, from the
     engines' rules: a term over a CSF prefix works on fiber rows (padded
@@ -1123,6 +1212,8 @@ def main(argv=None) -> int:
             check(f"small {spec.output.indices} {backend} "
                   f"{kw.get('strategy', '')}", out, ref)
     phase_done("2 small tensor")
+    k1_item_checks(dev)
+    phase_done("2b K1 items")
 
     # -- 3. the main path at full size --------------------------------- #
     t0 = time.perf_counter()

@@ -28,8 +28,8 @@
 // to read each operand element once, with
 // neighbouring threads on neighbouring columns so that the reads of one
 // fiber row coalesce, and to write each output element once.  There are
-// no atomics: every reduction is owned by one thread block, or cut into
-// fixed parts that a second pass adds in a fixed order (K4, K3), so
+// no atomics: every reduction across thread blocks is cut into fixed
+// parts that a second pass adds in a fixed order (K1, K3, K4), so
 // results are deterministic run to run.
 //
 // Every entry point launches on the caller's stream, allocates nothing,
@@ -92,28 +92,301 @@ __device__ T block_partial(const T* __restrict__ a, long long a_rs,
   return r;
 }
 
-// K1: one thread block per (output segment, column tile).  It walks the
-// segment's contiguous block range [block_ptr[s], block_ptr[s+1]) in
-// ascending order and adds each block's partial to the row, the order in
-// which the TPU's sequential grid adds them; the row is written once.
+// K1 over work items: each output segment's contiguous block range is
+// cut, on the host and from the layout alone (ir.reduce_items), into
+// items of at most a fixed number of consecutive blocks; partials[i] is
+// the sum over the rows z of item i (blocks [item_block[i],
+// item_block[i+1])) of mask[z] * einsum(stage)(z), and the segment
+// combine adds each segment's partial rows in ascending item order.  Why:
+// one thread block per segment left a heavy segment's walk (or a row
+// dot's single segment) to one SM while the others idled.
+//
+// One 256-thread block per (item, column tile).  threadIdx.x takes a
+// column, a 16-byte column vector or a register block (below), threadIdx.y
+// one of the block's row lanes: lane y takes rows y, y + lanes, ... of
+// the item in ascending order and issues the loads of kReduceRows rows
+// before it adds them.  A fixed shared-memory tree then adds the lanes
+// (lane 0 + lane h, for h = lanes/2 .. 1), and the block writes the
+// item's partial row.  No atomics: the same bits on every call.  Paths:
+//   kReduceVectors  every output column is one term, and runs of V
+//                   columns read V consecutive columns of A and of B from
+//                   a multiple of V (Zd,Zd->d): a thread sums one 16-byte
+//                   vector of columns, its A and B vectors found once;
+//   kReduceOuter    column d*E + e is A[d] * B[e], D and E multiples of
+//                   kOuterBlock (Zd,Ze->de): a thread keeps a 4 x 4 block
+//                   of (d, e) sums in registers, fed by 16-byte loads of
+//                   its 4 columns of A and of B (two loads of shared L1
+//                   lines for 16 multiply-adds), where one thread a column
+//                   read two scalars for each one;
+//   kReduceTables   anything else, through the index tables: a column of
+//                   at most kReduceHoist terms keeps its table entries in
+//                   registers, a longer one reads them once for the
+//                   kReduceRows rows in flight.
+constexpr int kReduceThreads = 256;
+constexpr int kReduceRows = 4;
+constexpr int kReduceHoist = 4;
+constexpr int kOuterBlock = 4;
+constexpr int kReduceTables = 0, kReduceVectors = 1, kReduceOuter = 2;
+
+template <typename T, int V>
+struct alignas(sizeof(T) * V) ReduceVec {
+  T x[V];
+};
+
+// Add the lanes of a 256-thread block: every thread holds W sums in acc
+// (shared slot i * 256 + thread); afterwards lane 0 holds the block's.
+template <typename T, int W>
+__device__ __forceinline__ void add_lanes(T (&acc)[W], T* red) {
+  const int me = threadIdx.y * blockDim.x + threadIdx.x;
+#pragma unroll
+  for (int i = 0; i < W; ++i) red[i * kReduceThreads + me] = acc[i];
+  __syncthreads();
+  for (int h = blockDim.y / 2; h > 0; h >>= 1) {
+    if (threadIdx.y < h) {
+#pragma unroll
+      for (int i = 0; i < W; ++i) {
+        acc[i] += red[i * kReduceThreads + me + h * blockDim.x];
+        red[i * kReduceThreads + me] = acc[i];
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// kReduceTables: this thread's column o of the item's rows [n0, n1).
 template <typename T>
-__global__ void reduce_kernel(const T* __restrict__ a, long long a_rs,
-                              const T* __restrict__ b, long long b_rs,
-                              const float* __restrict__ mask,
-                              const long long* __restrict__ block_ptr,
-                              int block, const int* __restrict__ out_ptr,
-                              const int* __restrict__ a_idx,
-                              const int* __restrict__ b_idx, int out_w,
-                              T* __restrict__ out) {
-  extern __shared__ unsigned char smem[];
-  T* red = reinterpret_cast<T*>(smem);
-  const long long s = blockIdx.x;
+__device__ __forceinline__ void reduce_tables(
+    const T* __restrict__ a, long long a_rs, const T* __restrict__ b,
+    long long b_rs, const float* __restrict__ mask, long long n0,
+    long long n1, const int* __restrict__ out_ptr,
+    const int* __restrict__ a_idx, const int* __restrict__ b_idx, int out_w,
+    T* __restrict__ prow) {
+  __shared__ T red[kReduceThreads];
+  const int lanes = blockDim.y;
   const int o = blockIdx.y * blockDim.x + threadIdx.x;
-  T acc = T(0);
-  for (long long blk = block_ptr[s]; blk < block_ptr[s + 1]; ++blk)
-    acc += block_partial(a, a_rs, b, b_rs, mask, blk, block, out_ptr, a_idx,
-                         b_idx, o, out_w, red);
-  if (threadIdx.y == 0 && o < out_w) out[s * out_w + o] = acc;
+  T acc[1] = {T(0)};
+  if (o < out_w) {
+    const int t0 = out_ptr[o], nt = out_ptr[o + 1] - t0;
+    int ca[kReduceHoist], cb[kReduceHoist];
+#pragma unroll
+    for (int j = 0; j < kReduceHoist; ++j) {
+      ca[j] = j < nt ? a_idx[t0 + j] : 0;
+      cb[j] = j < nt ? b_idx[t0 + j] : 0;
+    }
+    for (long long n = n0 + threadIdx.y; n < n1;
+         n += (long long)lanes * kReduceRows) {
+      const T* ar[kReduceRows];
+      const T* br[kReduceRows];
+      T w[kReduceRows], s[kReduceRows];
+#pragma unroll
+      for (int k = 0; k < kReduceRows; ++k) {
+        const long long m = n + (long long)k * lanes;
+        const long long z = m < n1 ? m : n;  // a real row, not added
+        ar[k] = a + z * a_rs;
+        br[k] = b + z * b_rs;
+        w[k] = T(mask[z]);
+        s[k] = T(0);
+      }
+      if (nt <= kReduceHoist) {
+#pragma unroll
+        for (int j = 0; j < kReduceHoist; ++j) {
+          if (j < nt) {
+#pragma unroll
+            for (int k = 0; k < kReduceRows; ++k)
+              s[k] += ar[k][ca[j]] * br[k][cb[j]];
+          }
+        }
+      } else {
+        for (int t = t0; t < t0 + nt; ++t) {
+          const int xa = a_idx[t], xb = b_idx[t];
+#pragma unroll
+          for (int k = 0; k < kReduceRows; ++k) s[k] += ar[k][xa] * br[k][xb];
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kReduceRows; ++k)
+        if (n + (long long)k * lanes < n1) acc[0] += w[k] * s[k];
+    }
+  }
+  add_lanes(acc, red);
+  if (threadIdx.y == 0 && o < out_w) prow[o] = acc[0];
+}
+
+// kReduceVectors: this thread's vector c of V output columns.
+template <typename T>
+__device__ __forceinline__ void reduce_vectors(
+    const T* __restrict__ a, long long a_rs, const T* __restrict__ b,
+    long long b_rs, const float* __restrict__ mask, long long n0,
+    long long n1, const int* __restrict__ a_idx,
+    const int* __restrict__ b_idx, int out_w, T* __restrict__ prow) {
+  constexpr int V = 16 / sizeof(T);
+  using P = ReduceVec<T, V>;
+  __shared__ T red[V * kReduceThreads];
+  const int lanes = blockDim.y;
+  const int c = blockIdx.y * blockDim.x + threadIdx.x;
+  T acc[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) acc[i] = T(0);
+  if (c < out_w / V) {
+    const P* ap = reinterpret_cast<const P*>(a) + a_idx[c * V] / V;
+    const P* bp = reinterpret_cast<const P*>(b) + b_idx[c * V] / V;
+    const long long ars = a_rs / V, brs = b_rs / V;
+    for (long long n = n0 + threadIdx.y; n < n1;
+         n += (long long)lanes * kReduceRows) {
+      P av[kReduceRows], bv[kReduceRows];
+      T w[kReduceRows];
+#pragma unroll
+      for (int k = 0; k < kReduceRows; ++k) {
+        const long long m = n + (long long)k * lanes;
+        if (m < n1) {
+          av[k] = ap[m * ars];
+          bv[k] = bp[m * brs];
+          w[k] = T(mask[m]);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kReduceRows; ++k) {
+        if (n + (long long)k * lanes < n1) {
+#pragma unroll
+          for (int i = 0; i < V; ++i) acc[i] += w[k] * av[k].x[i] * bv[k].x[i];
+        }
+      }
+    }
+  }
+  add_lanes(acc, red);
+  if (threadIdx.y == 0 && c < out_w / V) {
+    P out;
+#pragma unroll
+    for (int i = 0; i < V; ++i) out.x[i] = acc[i];
+    reinterpret_cast<P*>(prow)[c] = out;
+  }
+}
+
+// kReduceOuter: this thread's register block c, rows d0 .. d0 + 3 of A's
+// columns times columns e0 .. e0 + 3 of B's (D = a_rs, E = b_rs).
+template <typename T>
+__device__ __forceinline__ void reduce_outer(
+    const T* __restrict__ a, long long a_rs, const T* __restrict__ b,
+    long long b_rs, const float* __restrict__ mask, long long n0,
+    long long n1, T* __restrict__ prow) {
+  constexpr int V = 16 / sizeof(T), RB = kOuterBlock, NV = RB / V;
+  using P = ReduceVec<T, V>;
+  __shared__ T red[RB * RB * kReduceThreads];
+  const int lanes = blockDim.y;
+  const int E = (int)b_rs, nbe = E / RB, nblk = (int)(a_rs / RB) * nbe;
+  const int c = blockIdx.y * blockDim.x + threadIdx.x;
+  const int d0 = c / nbe * RB, e0 = c % nbe * RB;
+  T acc[RB * RB];
+#pragma unroll
+  for (int i = 0; i < RB * RB; ++i) acc[i] = T(0);
+  if (c < nblk) {
+    const P* ap = reinterpret_cast<const P*>(a + d0);
+    const P* bp = reinterpret_cast<const P*>(b + e0);
+    const long long ars = a_rs / V, brs = b_rs / V;
+    for (long long n = n0 + threadIdx.y; n < n1;
+         n += (long long)lanes * kReduceRows) {
+      P av[kReduceRows][NV], bv[kReduceRows][NV];
+      T w[kReduceRows];
+#pragma unroll
+      for (int k = 0; k < kReduceRows; ++k) {
+        const long long m = n + (long long)k * lanes;
+        if (m < n1) {
+#pragma unroll
+          for (int v = 0; v < NV; ++v) {
+            av[k][v] = ap[m * ars + v];
+            bv[k][v] = bp[m * brs + v];
+          }
+          w[k] = T(mask[m]);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kReduceRows; ++k) {
+        if (n + (long long)k * lanes < n1) {
+#pragma unroll
+          for (int i = 0; i < RB; ++i) {
+            const T x = w[k] * av[k][i / V].x[i % V];
+#pragma unroll
+            for (int j = 0; j < RB; ++j)
+              acc[i * RB + j] += x * bv[k][j / V].x[j % V];
+          }
+        }
+      }
+    }
+  }
+  add_lanes(acc, red);
+  if (threadIdx.y == 0 && c < nblk) {
+#pragma unroll
+    for (int i = 0; i < RB; ++i)
+#pragma unroll
+      for (int j = 0; j < RB; ++j)
+        prow[(long long)(d0 + i) * E + e0 + j] = acc[i * RB + j];
+  }
+}
+
+template <typename T, int PATH>
+__global__ void __launch_bounds__(kReduceThreads)
+    reduce_kernel(const T* __restrict__ a, long long a_rs,
+                  const T* __restrict__ b, long long b_rs,
+                  const float* __restrict__ mask,
+                  const long long* __restrict__ item_block, int block,
+                  const int* __restrict__ out_ptr,
+                  const int* __restrict__ a_idx,
+                  const int* __restrict__ b_idx, int out_w,
+                  T* __restrict__ partials) {
+  const long long item = blockIdx.x;
+  const long long n0 = item_block[item] * block;
+  const long long n1 = item_block[item + 1] * block;
+  T* prow = partials + item * out_w;
+  if constexpr (PATH == kReduceVectors)
+    reduce_vectors(a, a_rs, b, b_rs, mask, n0, n1, a_idx, b_idx, out_w,
+                   prow);
+  else if constexpr (PATH == kReduceOuter)
+    reduce_outer(a, a_rs, b, b_rs, mask, n0, n1, prow);
+  else
+    reduce_tables(a, a_rs, b, b_rs, mask, n0, n1, out_ptr, a_idx, b_idx,
+                  out_w, prow);
+}
+
+// K1's launch: threadIdx.x over the path's columns (the smallest power of
+// two covering them, at most 256: stages.reduce_columns), the rest of the
+// 256 threads row lanes.  A vector path on what it cannot read (a width
+// off the vector, a base off 16 bytes) is refused, not run.
+template <typename T>
+int reduce_entry(const void* a, long long a_rs, const void* b,
+                 long long b_rs, const void* mask, const void* item_block,
+                 long long nitems, int block, const void* out_ptr,
+                 const void* a_idx, const void* b_idx, int out_w, int path,
+                 void* partials, cudaStream_t stream) {
+  constexpr int V = 16 / sizeof(T);
+  const bool aligned =
+      ((uintptr_t)a | (uintptr_t)b | (uintptr_t)partials) % 16 == 0;
+  int cols = out_w;
+  if (path == kReduceVectors) {
+    if (!aligned || out_w % V || a_rs % V || b_rs % V)
+      return (int)cudaErrorInvalidValue;
+    cols = out_w / V;
+  } else if (path == kReduceOuter) {
+    if (!aligned || a_rs <= 0 || b_rs <= 0 || a_rs % kOuterBlock ||
+        b_rs % kOuterBlock || (long long)out_w != a_rs * b_rs)
+      return (int)cudaErrorInvalidValue;
+    cols = out_w / (kOuterBlock * kOuterBlock);
+  } else if (path != kReduceTables) {
+    return (int)cudaErrorInvalidValue;
+  }
+  int tx = 1;
+  while (tx < cols && tx < kReduceThreads) tx *= 2;
+  const dim3 threads(tx, kReduceThreads / tx);
+  const dim3 grid((unsigned)nitems, (cols + tx - 1) / tx);
+  const auto go = [&](auto kernel) {
+    kernel<<<grid, threads, 0, stream>>>(
+        (const T*)a, a_rs, (const T*)b, b_rs, (const float*)mask,
+        (const long long*)item_block, block, (const int*)out_ptr,
+        (const int*)a_idx, (const int*)b_idx, out_w, (T*)partials);
+    return (int)cudaGetLastError();
+  };
+  if (path == kReduceVectors) return go(reduce_kernel<T, kReduceVectors>);
+  if (path == kReduceOuter) return go(reduce_kernel<T, kReduceOuter>);
+  return go(reduce_kernel<T, kReduceTables>);
 }
 
 // K4 partials: one thread block per (fiber block, column tile), writing
@@ -536,30 +809,25 @@ __global__ void chain_kernel(const T* __restrict__ a, long long a_rs,
 }  // namespace spttn
 
 // --------------------------------------------------------------------------
-// C entry points (bound with ctypes).  Launch geometry comes from the
-// caller: for K1, K3 and K4 tx threads over output columns (a power of
-// two); K1 and K4 add 256 / tx over fibers, K3 only enough to fill one
-// warp (32 / tx; one over fibers from 32 columns up): a K3 thread block
-// walks one item's blocks in order with a barrier or three a block, so
-// small thread blocks, up to 32 of them on an SM, hide that walk's
-// latency where large ones would spend their threads waiting at the
-// barriers.  For K2 the tile rows R, the table and chunk modes and the
-// shared bytes (stages.product_tiling).
+// C entry points (bound with ctypes).  K1 sets its own geometry from its
+// path (reduce_entry).  For K3 and K4 the caller gives tx threads over
+// output columns (a power of two); K4 adds 256 / tx over fibers, K3 only
+// enough to fill one warp (32 / tx; one over fibers from 32 columns up):
+// a K3 thread block walks one item's blocks in order with a barrier or
+// three a block, so small thread blocks, up to 32 of them on an SM, hide
+// that walk's latency where large ones would spend their threads waiting
+// at the barriers.  For K2 the tile rows R, the table and chunk modes and
+// the shared bytes (stages.product_tiling).
 // --------------------------------------------------------------------------
 #define SPTTN_ENTRY_POINTS(T, SUFFIX)                                          \
   extern "C" int spttn_reduce_##SUFFIX(                                        \
       const void* a, long long a_rs, const void* b, long long b_rs,            \
-      const void* mask, const void* block_ptr, long long nseg, int block,      \
+      const void* mask, const void* item_block, long long nitems, int block,   \
       const void* out_ptr, const void* a_idx, const void* b_idx, int out_w,    \
-      int tx, void* out, void* stream) {                                       \
-    const dim3 threads(tx, 256 / tx);                                          \
-    const dim3 grid((unsigned)nseg, (out_w + tx - 1) / tx);                    \
-    spttn::reduce_kernel<T><<<grid, threads, 256 * sizeof(T),                  \
-                       (cudaStream_t)stream>>>(                                \
-        (const T*)a, a_rs, (const T*)b, b_rs, (const float*)mask,              \
-        (const long long*)block_ptr, block, (const int*)out_ptr,               \
-        (const int*)a_idx, (const int*)b_idx, out_w, (T*)out);                 \
-    return (int)cudaGetLastError();                                            \
+      int path, void* partials, void* stream) {                                \
+    return spttn::reduce_entry<T>(a, a_rs, b, b_rs, mask, item_block, nitems,  \
+                                  block, out_ptr, a_idx, b_idx, out_w, path,   \
+                                  partials, (cudaStream_t)stream);             \
   }                                                                            \
   extern "C" int spttn_splitk_##SUFFIX(                                        \
       const void* a, long long a_rs, const void* b, long long b_rs,            \

@@ -50,7 +50,8 @@ from repro_torch.kernels.codegen import lower_gpu, stages  # noqa: F401
 from repro_torch.kernels.codegen.ir import (TILE_SUBLANE, ChainLayout,
                                             ChainLink, Stage, StageIR,
                                             StageOperand, get_lowering,
-                                            index_tables, link_stage)
+                                            index_tables, link_stage,
+                                            reduce_items)
 from repro_torch.kernels.segment import segment_ptr
 from repro_torch.kernels.util import padded_segment_layout, round_up
 
@@ -80,8 +81,10 @@ class SegmentProfile:
 def layout_cache(csf: CSFArrays) -> dict:
     """The per-operand static layout cache (``CSFArrays.cache``).
     Stage entries, key ``(lvl, out_lvl, block)``: ``(lay, gather, mask,
-    block_ptr)`` with the last three on the operand's device; index-table
-    entries, key ``("tables", stage fields)``: :class:`IndexTables`."""
+    block_ptr, items)`` with the last four on the operand's device
+    (``items``: K1's :func:`~repro_torch.kernels.codegen.ir.reduce_items`,
+    cut once from the host block offsets); index-table entries, key
+    ``("tables", stage fields)``: :class:`IndexTables`."""
     return csf.cache
 
 
@@ -195,11 +198,13 @@ class StagePlanExecutor(VectorizedExecutor):
             lay = padded_segment_layout(csf.host_segments(lvl, out_lvl), nseg,
                                         self.block)
             dev = csf.device
+            block_ptr = torch.from_numpy(segment_ptr(lay.block_seg, nseg))
             cache[key] = (
                 lay,
                 torch.from_numpy(lay.gather.astype(np.int64)).to(dev),
                 torch.from_numpy(lay.mask).to(dev),
-                torch.from_numpy(segment_ptr(lay.block_seg, nseg)).to(dev))
+                block_ptr.to(dev),
+                reduce_items(block_ptr, self.block).to(dev))
         return cache[key]
 
     def _tables(self, csf: CSFArrays, stage: Stage):
@@ -379,7 +384,8 @@ class StagePlanExecutor(VectorizedExecutor):
         out_subs = "".join(self._letter[i] for i in out_dense)
 
         if reduce_ and self._use_row(csf, lvl, out_lvl):
-            lay, gather, mask, block_ptr = self._layout(csf, lvl, out_lvl)
+            lay, gather, mask, block_ptr, items = self._layout(csf, lvl,
+                                                               out_lvl)
             padded = [
                 arr.reshape(nfib, -1)[gather] if op.fiber
                 else arr.reshape(1, -1)
@@ -391,7 +397,8 @@ class StagePlanExecutor(VectorizedExecutor):
             self.emitted_stages.append(stage)
             self.emitted_ir.append(ir)
             out2d = self.lowering.reduce(ir, self._tables(csf, stage),
-                                         block_ptr, mask, padded, dtype)
+                                         block_ptr, mask, padded, dtype,
+                                         items)
             arr = out2d.reshape((lay.nseg,) + oshape)
             return arr.reshape(oshape) if out_lvl == 0 else arr
 

@@ -10,11 +10,11 @@ held equal on the same plan.  A registered :class:`Lowering` turns the IR
 into kernels for one target:
 
 * ``"hopper"`` (kernels/codegen/stages.py) — the segment-loop lowering:
-  one thread block per output segment walks the segment's blocks in
-  ascending order (K1), per-fiber products are K2, and a fused chain is
-  one thread block per work item of at most a fixed number of blocks of
-  one outermost segment, whose partial rows the segment combine adds in
-  item order (K3).
+  a reducing stage is one thread block per work item of at most a fixed
+  number of rows of one output segment (K1), per-fiber products are K2,
+  and a fused chain is one thread block per work item of at most a fixed
+  number of blocks of one outermost segment (K3); the segment combine
+  adds each segment's partial rows in item order.
 * ``"hopper-splitk"`` (kernels/codegen/lower_gpu.py) — split-K partials
   per fiber block (K4) plus a segment-combine pass; a chain adds one
   batched einsum and one combine per link.
@@ -215,6 +215,10 @@ class ChainItems:
     def nitems(self) -> int:
         return self.item_block.shape[0] - 1
 
+    def to(self, device) -> ChainItems:
+        return ChainItems(self.item_block.to(device),
+                          self.item_ptr.to(device), self.cap)
+
 
 def chain_items(out_block_ptr: torch.Tensor,
                 cap: int | None = None) -> ChainItems:
@@ -233,6 +237,21 @@ def chain_items(out_block_ptr: torch.Tensor,
     first = out_block_ptr[seg] + (torch.arange(nitems, device=dev)
                                   - item_ptr[seg]) * cap
     return ChainItems(torch.cat([first, out_block_ptr[-1:]]), item_ptr, cap)
+
+
+#: K1's work items hold at most this many fiber rows: as many whole
+#: blocks as fit, at least one (16 blocks at the executor's default block
+#: of 128).  Fixed, so the cut (and every float sum's order) depends on
+#: the layout alone.
+REDUCE_ITEM_ROWS = 2048
+
+
+def reduce_items(block_ptr: torch.Tensor, block: int) -> ChainItems:
+    """K1's work items: the segments' block ranges ``block_ptr`` cut into
+    items of at most ``max(1, REDUCE_ITEM_ROWS // block)`` blocks, with
+    :func:`chain_items` on ``block_ptr``'s device (the executor passes
+    its host copy, once per layout)."""
+    return chain_items(block_ptr, max(1, REDUCE_ITEM_ROWS // block))
 
 
 def link_stage(link: ChainLink) -> Stage:
@@ -344,7 +363,9 @@ class Lowering:
 
     * ``reduce``  → ``(stage.nseg, stage.out_flat_dim)`` in ``dtype``;
       ``block_ptr`` (int64, ``nseg + 1``) gives each segment's
-      contiguous block range, ``mask`` the (P,) pad-slot mask
+      contiguous block range, ``mask`` the (P,) pad-slot mask and
+      ``items`` the layout's :func:`reduce_items` on the mask's device
+      (a target may ignore them)
     * ``product`` → ``(rows, stage.out_flat_dim)`` in ``dtype``, one
       row per fiber row given
     * ``chain``   → ``(ir.nseg_out, links[-1].out_flat_dim)``;
@@ -357,7 +378,7 @@ class Lowering:
     target: str = "?"
 
     def reduce(self, ir: StageIR, tables: IndexTables, block_ptr, mask,
-               padded, dtype):
+               padded, dtype, items: ChainItems | None = None):
         raise NotImplementedError
 
     def product(self, ir: StageIR, tables: IndexTables, padded, dtype):

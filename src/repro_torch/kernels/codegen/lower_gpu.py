@@ -9,13 +9,12 @@ The counterpart of the JAX package's Mosaic-GPU-style lowering
   to its own row of an ``(n_blocks, out_flat)`` buffer in the
   accumulator type.  No two blocks touch the same memory, so the kernel
   is legal in any execution order and fills the card with
-  ``n_blocks`` independent blocks, where the segment loop of
-  ``"hopper"`` has one block per segment.
+  ``n_blocks`` independent blocks (``"hopper"``'s K1 runs one block per
+  work item of a bounded number of rows instead).
 * **segment combine** (:func:`repro_torch.kernels.segment.
   segment_combine`, replaces ``lower_gpu.py:109``): each segment's
   partials are added in ascending block order — the order of the TPU's
-  sequential accumulator — so split-K then combine equals the segment
-  loop's order of additions at the block level.
+  sequential accumulator.
 
 The price is one round trip of the partials through device memory
 (``n_blocks * out_flat`` elements written and read back).  Product
@@ -79,7 +78,8 @@ class HopperSplitKLowering(Lowering):
 
     target = "hopper-splitk"
 
-    def reduce(self, ir: StageIR, tables, block_ptr, mask, padded, dtype):
+    def reduce(self, ir: StageIR, tables, block_ptr, mask, padded, dtype,
+               items=None):
         parts = splitk_partials(ir.stage, tables, mask, padded)
         return segment_combine(parts, block_ptr, ir.stage.nseg).to(dtype)
 

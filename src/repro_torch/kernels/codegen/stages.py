@@ -6,13 +6,22 @@ kernels on the H100 (CUDA sources in ``csrc/stage_kernels.cu``):
 * **K1, reduce** (:func:`run_reduce_stage`, replaces
   ``src/repro/kernels/codegen/stages.py:82`` ``run_reduce_stage``).  On
   the TPU one output row stays in VMEM while the sequential grid visits
-  the segment's blocks.  A GPU grid has no order, so here one thread
-  block owns one output segment (times a column tile) and walks that
-  segment's contiguous block range in ascending order, adding each
-  block's partial to the row in the accumulator type and writing the row
-  once.  The block order is the TPU's, no atomics are used, and every
-  segment owns at least one block (``padded_segment_layout``), so every
-  row is written.
+  the segment's blocks.  A GPU grid has no order, and the patterns are
+  skewed (one segment can hold most of the blocks, a row dot ``->`` has
+  one segment), so each segment's block range is cut into work items of
+  at most :data:`~repro_torch.kernels.codegen.ir.REDUCE_ITEM_ROWS` rows
+  (:func:`~repro_torch.kernels.codegen.ir.reduce_items`, a function of
+  the layout alone, cut once per layout by the executor).  One
+  256-thread block sums an item's rows into a partial row, its row lanes
+  walking rows in ascending order with several rows' loads in flight and
+  meeting in a fixed tree; the combine
+  (:func:`~repro_torch.kernels.segment.segment_combine`) adds each
+  segment's partial rows in ascending item order.  No atomics, the same
+  bits on every call, and every segment owns at least one block
+  (``padded_segment_layout``), so every row is written.  The kernel
+  takes one of three paths (:func:`reduce_path`): one-term columns read
+  as 16-byte vectors (``Zd,Zd->d``), one-term outer products in 4 x 4
+  register blocks (``Zd,Ze->de``), or the index tables.
 * **K2, product** (:func:`run_product_stage`, replaces ``stages.py:155``
   ``run_product_stage``): a persistent grid walks tiles of consecutive
   fiber rows; each tile of an operand is one contiguous chunk, copied
@@ -44,9 +53,8 @@ kernels on the H100 (CUDA sources in ``csrc/stage_kernels.cu``):
 
 All three are bound by bytes: a stage does O(1) multiply-adds per
 element it reads.  In K1 and K3, threads of one fiber row take
-neighbouring output columns, so row reads and output writes coalesce.  Hot spots left for a later PR: K1
-runs a heavy segment's blocks on one SM, and with few segments it does
-not fill the card.
+neighbouring output columns (or column vectors, or register blocks), so
+row reads and output writes coalesce.
 
 Each runner takes its kernel's plain PyTorch version (the ``*_plain``
 functions) only for CPU tensors; for CUDA tensors it launches the kernel
@@ -61,12 +69,13 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import native
-from repro_torch.kernels.codegen.ir import (ChainLayout, ChainLink,
-                                            IndexTables, Lowering, Stage,
-                                            StageIR, accumulator_type,
+from repro_torch.kernels.codegen.ir import (ChainItems, ChainLayout,
+                                            ChainLink, IndexTables,
+                                            Lowering, Stage, StageIR,
+                                            accumulator_type,
                                             check_block_grid,
                                             index_table_arrays,
-                                            load_operands,
+                                            load_operands, reduce_items,
                                             register_lowering)
 from repro_torch.kernels.segment import (segment_combine,
                                          segment_combine_plain)
@@ -115,12 +124,81 @@ def run_reduce_stage_plain(stage: Stage, block_ptr, mask, padded,
     return segment_combine_plain(parts, block_ptr, stage.nseg).to(dtype)
 
 
+#: K1's paths, the kernel's ``kReduce*``: the index tables, one-term
+#: columns read as 16-byte vectors, one-term outer products in register
+#: blocks.
+REDUCE_TABLES, REDUCE_VECTORS, REDUCE_OUTER = 0, 1, 2
+#: The edge of the outer-product path's (d, e) register block (the
+#: kernel's ``kOuterBlock``); it takes outputs of at most
+#: :data:`OUTER_MAX_OUT` columns.
+OUTER_BLOCK = 4
+OUTER_MAX_OUT = 256
+
+
+@functools.lru_cache(maxsize=256)
+def reduce_path(stage: Stage, itemsize: int) -> int:
+    """K1's path for ``stage`` in a type of ``itemsize`` bytes, from its
+    host index tables (bases aside: :func:`reduce_launch_path`).  Both
+    operands must be fiber rows and every output column one term; then
+
+    * :data:`REDUCE_VECTORS` when every run of ``16 // itemsize`` output
+      columns reads consecutive A and B columns from a multiple of the
+      vector and every row is whole vectors (``Zd,Zd->d``);
+    * :data:`REDUCE_OUTER` when column ``d * E + e`` reads ``A[d]`` and
+      ``B[e]``, D and E multiples of :data:`OUTER_BLOCK` and D * E at most
+      :data:`OUTER_MAX_OUT` (``Zd,Ze->de``);
+
+    and :data:`REDUCE_TABLES` for everything else (terms summed per
+    column, a broadcast operand, widths off the vector, wider outer
+    products)."""
+    out_ptr, a_idx, b_idx = index_table_arrays(stage)
+    wa, wb = (op.flat_dim for op in stage.operands)
+    w = stage.out_flat_dim
+    if not w or not all(op.fiber for op in stage.operands) or \
+            (np.diff(out_ptr) != 1).any():
+        return REDUCE_TABLES
+    v = 16 // itemsize
+    if not (w % v or wa % v or wb % v) and _whole_chunks(a_idx, v) \
+            and _whole_chunks(b_idx, v):
+        return REDUCE_VECTORS
+    col = np.arange(w)
+    if w == wa * wb <= OUTER_MAX_OUT and not (wa % OUTER_BLOCK
+                                              or wb % OUTER_BLOCK) \
+            and (a_idx == col // wb).all() and (b_idx == col % wb).all():
+        return REDUCE_OUTER
+    return REDUCE_TABLES
+
+
+def reduce_launch_path(stage: Stage, rows) -> int:
+    """K1's path on the operand rows given: :func:`reduce_path`, or the
+    index tables when an operand's base is off 16 bytes."""
+    if any(r.data_ptr() % 16 for r in rows):
+        return REDUCE_TABLES
+    return reduce_path(stage, rows[0].element_size())
+
+
+def reduce_columns(stage: Stage, path: int, itemsize: int) -> int:
+    """The threads a row lane of K1 spans on ``path``: one per output
+    column, column vector or register block."""
+    w = stage.out_flat_dim
+    if path == REDUCE_VECTORS:
+        return w // (16 // itemsize)
+    if path == REDUCE_OUTER:
+        return w // (OUTER_BLOCK * OUTER_BLOCK)
+    return w
+
+
 def run_reduce_stage(stage: Stage, tables: IndexTables, block_ptr, mask,
-                     padded, dtype) -> torch.Tensor:
+                     padded, dtype,
+                     items: ChainItems | None = None) -> torch.Tensor:
     """K1: ``out[s] = sum over the blocks b of segment s (ascending) of
     sum_{fibers z in b} mask[z] * einsum(stage.expr)(z)`` ->
     ``(stage.nseg, out_flat)`` in ``dtype``, accumulated at
-    :func:`accumulator_type`."""
+    :func:`accumulator_type`: the kernel over ``items`` (the layout's
+    :func:`~repro_torch.kernels.codegen.ir.reduce_items` on the mask's
+    device), then the combine of their partial rows.  Given ``items``,
+    nothing is read back to the host; without them they are cut here
+    from a host copy of ``block_ptr``."""
     check_block_grid(mask.shape[0], stage.block)
     if mask.device.type == "cpu":
         return run_reduce_stage_plain(stage, block_ptr, mask, padded, dtype)
@@ -131,16 +209,27 @@ def run_reduce_stage(stage: Stage, tables: IndexTables, block_ptr, mask,
     if block_ptr.shape != (stage.nseg + 1,):
         raise ValueError(f"reduce stage {stage.expr}: needs nseg + 1 "
                          f"block offsets, got {tuple(block_ptr.shape)}")
+    dev = mask.device
+    if items is None:
+        items = reduce_items(block_ptr.cpu(), stage.block).to(dev)
+    native.check_cuda_tensors(mask, items.item_block, items.item_ptr)
+    native.check_cuda_tensors(items.item_block, items.item_ptr,
+                              dtype=torch.int64)
+    if items.item_ptr.shape != (stage.nseg + 1,):
+        raise ValueError(f"reduce stage {stage.expr}: item_ptr "
+                         f"{tuple(items.item_ptr.shape)} for {stage.nseg} "
+                         f"segments")
     w = stage.out_flat_dim
-    out = torch.empty((stage.nseg, w), dtype=acc_t, device=mask.device)
-    tx = native.column_threads(w)
-    native.check_grid(stage.nseg, -(-w // tx))
-    if stage.nseg * w:
-        native.launch("reduce", acc_t, mask.device, rows[0], strides[0],
-                      rows[1], strides[1], mask, block_ptr, stage.nseg,
+    path = reduce_launch_path(stage, rows)
+    cols = reduce_columns(stage, path, acc_t.itemsize)
+    partials = torch.empty((items.nitems, w), dtype=acc_t, device=dev)
+    native.check_grid(items.nitems, -(-cols // native.column_threads(cols)))
+    if items.nitems * w:
+        native.launch("reduce", acc_t, dev, rows[0], strides[0], rows[1],
+                      strides[1], mask, items.item_block, items.nitems,
                       stage.block, tables.out_ptr, tables.a_idx,
-                      tables.b_idx, w, tx, out)
-    return out.to(dtype)
+                      tables.b_idx, w, path, partials)
+    return segment_combine(partials, items.item_ptr, stage.nseg).to(dtype)
 
 
 def run_product_stage_plain(stage: Stage, padded, dtype) -> torch.Tensor:
@@ -190,6 +279,14 @@ def chunk_swizzle(width: int, itemsize: int) -> int:
     return min(chunks & -chunks, 8) - 1
 
 
+def _whole_chunks(idx: np.ndarray, v: int) -> bool:
+    """Whether the columns ``idx`` come in runs of ``v`` consecutive
+    columns, each from a multiple of ``v``."""
+    runs = idx.reshape(-1, v)
+    return bool((runs[:, 0] % v == 0).all()
+                and (runs == runs[:, :1] + np.arange(v)).all())
+
+
 def term_chunks(stage: Stage, itemsize: int) -> bool:
     """Whether every output column's terms come in runs of one whole
     16-byte chunk of both operands (``16 // itemsize`` consecutive
@@ -201,10 +298,7 @@ def term_chunks(stage: Stage, itemsize: int) -> bool:
     if not a_idx.size or (np.diff(out_ptr) % v).any() or any(
             op.fiber and op.flat_dim % v for op in stage.operands):
         return False
-    step = np.arange(v)
-    return all(bool((runs[:, 0] % v == 0).all()
-                    and (runs == runs[:, :1] + step).all())
-               for runs in (a_idx.reshape(-1, v), b_idx.reshape(-1, v)))
+    return _whole_chunks(a_idx, v) and _whole_chunks(b_idx, v)
 
 
 @functools.lru_cache(maxsize=256)
@@ -397,9 +491,10 @@ class HopperLowering(Lowering):
 
     target = "hopper"
 
-    def reduce(self, ir: StageIR, tables, block_ptr, mask, padded, dtype):
+    def reduce(self, ir: StageIR, tables, block_ptr, mask, padded, dtype,
+               items=None):
         return run_reduce_stage(ir.stage, tables, block_ptr, mask, padded,
-                                dtype)
+                                dtype, items)
 
     def product(self, ir: StageIR, tables, padded, dtype):
         return run_product_stage(ir.stage, tables, padded, dtype)

@@ -1,5 +1,7 @@
 """The port's CUDA kernels on the card: each against its plain version
-(K1, K2, K4 and the combine; K2's scalar path, global tables and
+(K1, K2, K4 and the combine; K1 over work items on a skewed layout on
+each of its three paths, the same bits twice and no host read; K2's
+scalar path, global tables and
 float64 table-order sums; K3, the fused chain, on 2- and 3-level
 chains over work items from one block to the default cut, the same
 bits run to run; K5-K7, the paper kernels, K5 over work items on a
@@ -148,17 +150,119 @@ def test_reduce_and_splitk_kernels_match_plain(cuda, ops, out_subs,
     parts = lower_gpu.splitk_partials(st, tables, mask, padded)
     comb = segment_combine(parts, ptr, nseg)
     torch.cuda.synchronize()
+    # K1 launches the combine of its items' partial rows, K4's caller one
     assert native.launch_counts() == {
         **dict.fromkeys(native.KERNELS, 0), "reduce": 1, "splitk": 1,
-        "combine": 1}
+        "combine": 2}
     _close(out, stages.run_reduce_stage_plain(st, ptr, mask, padded, dtype),
            dtype)
     _close(parts, stages.block_partials_plain(st, mask, padded), dtype)
     _close(comb, segment_combine_plain(parts, ptr, nseg), dtype)
     if dtype == torch.float64:
-        # same block order, same partials: the segment loop and split-K
-        # then combine add identical block partials in identical order
+        # the two engines group the same rows into other partials (K1 by
+        # work items and row lanes, K4 by blocks), so they agree to
+        # float64 rounding, not bit for bit
         _close(comb, out, dtype)
+
+
+# K1's cases: (operands, out_subs, out_shape, segments, elements moving
+# the first operand's base off 16 bytes, the path the kernel takes)
+REDUCE_CASES = [
+    pytest.param([("d", (64,), True), ("d", (64,), True)], "d", (64,), 40,
+                 0, stages.REDUCE_VECTORS, id="vectors-Zd,Zd->d"),
+    pytest.param([("d", (16,), True), ("e", (16,), True)], "de", (16, 16),
+                 40, 0, stages.REDUCE_OUTER, id="outer-16x16"),
+    pytest.param([("d", (8,), True), ("e", (12,), True)], "de", (8, 12), 40,
+                 0, stages.REDUCE_OUTER, id="outer-8x12"),
+    pytest.param([("de", (3, 4), True), ("e", (4,), False)], "d", (3,), 40,
+                 0, stages.REDUCE_TABLES, id="tables-Zde,e->d"),
+    pytest.param([("d", (64,), True), ("d", (64,), True)], "", (), 1, 0,
+                 stages.REDUCE_TABLES, id="tables-Zd,Zd->-one-segment"),
+    pytest.param([("d", (64,), True), ("d", (64,), False)], "d", (64,), 40,
+                 0, stages.REDUCE_TABLES, id="tables-broadcast-Zd,d->d"),
+    pytest.param([("", (), True), ("d", (40,), True)], "d", (40,), 40, 0,
+                 stages.REDUCE_TABLES, id="tables-width-40"),
+    pytest.param([("d", (20,), True), ("e", (20,), True)], "de", (20, 20),
+                 40, 0, stages.REDUCE_TABLES, id="tables-20x20"),
+    pytest.param([("d", (64,), True), ("d", (64,), True)], "d", (64,), 40,
+                 1, stages.REDUCE_TABLES, id="tables-misaligned"),
+]
+
+
+def _skewed_reduce_call(ops, out_subs, out_shape, nseg, offset, dtype,
+                        dev):
+    """K1's arguments on a skewed layout: 20,000 fibers, a third of them
+    in segment 0 (many work items), segment 1 pad rows alone (when there
+    are several), block 16; ``offset`` elements moves the first
+    operand's base off 16 bytes."""
+    rng = np.random.default_rng(11)
+    nfib, block = 20000, 16
+    seg = np.sort(rng.integers(min(2, nseg - 1), nseg, size=nfib))
+    seg[: nfib // 3] = 0
+    lay = padded_segment_layout(np.sort(seg), nseg, block)
+    st = _stage(ops, out_subs, out_shape, True, block, nseg)
+    padded = _reduce_inputs(ops, rng, lay, nfib, dtype, dev)
+    if offset:
+        flat = torch.zeros(padded[0].numel() + offset, dtype=dtype,
+                           device=dev)
+        flat[offset:] = padded[0].flatten()
+        padded[0] = flat[offset:].view(padded[0].shape)
+    mask = torch.from_numpy(lay.mask).to(dev)
+    ptr = torch.from_numpy(segment_ptr(lay.block_seg, nseg)).to(dev)
+    return st, ir.index_tables(st, dev), ptr, mask, padded
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("ops,out_subs,out_shape,nseg,offset,path",
+                         REDUCE_CASES)
+def test_reduce_kernel_items_match_plain(cuda, ops, out_subs, out_shape,
+                                         nseg, offset, path, dtype):
+    """K1 over work items on a skewed layout, on each of its paths:
+    items of three blocks (segment 0 spans over a hundred) as the
+    executor passes them, and the wrapper's own cut; against its plain
+    version, one launch of K1 and one of the combine a call, the same
+    bits on a second call, and a zero row for a segment of pad rows."""
+    st, tables, ptr, mask, padded = _skewed_reduce_call(
+        ops, out_subs, out_shape, nseg, offset, dtype, cuda)
+    assert stages.reduce_launch_path(
+        st, [p.to(dtype) for p in padded]) == path
+    want = stages.run_reduce_stage_plain(st, ptr, mask, padded, dtype)
+    small = ir.chain_items(ptr.cpu(), 3).to(cuda)
+    assert int(small.item_ptr[1]) > 100
+    for items in (small, None):
+        native.reset_launch_counts()
+        got = stages.run_reduce_stage(st, tables, ptr, mask, padded, dtype,
+                                      items)
+        torch.cuda.synchronize()
+        counts = native.launch_counts()
+        assert counts["reduce"] == 1 and counts["combine"] == 1
+        _close(got, want, dtype)
+        again = stages.run_reduce_stage(st, tables, ptr, mask, padded,
+                                        dtype, items)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        if nseg > 1:
+            assert not bool(got[1].any())
+
+
+def test_reduce_kernel_given_its_items_reads_nothing_back(cuda):
+    """Given the layout's items (as the executor passes them), K1's
+    wrapper makes no device-to-host read: it runs under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+    st, tables, ptr, mask, padded = _skewed_reduce_call(
+        *REDUCE_CASES[1].values[:5], torch.float32, cuda)
+    items = ir.reduce_items(ptr.cpu(), st.block).to(cuda)
+    want = stages.run_reduce_stage(st, tables, ptr, mask, padded,
+                                   torch.float32, items)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = stages.run_reduce_stage(st, tables, ptr, mask, padded,
+                                      torch.float32, items)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
