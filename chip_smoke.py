@@ -21,7 +21,9 @@ any failure exits non-zero):
    strategy (the fused chain included), against the port's numpy
    Algorithm-2 ``reference_execute``; then (2b) K1 over the work items
    of a skewed layout, on each of its three paths, against its plain
-   version (``K1 items`` lines).
+   version (``K1 items`` lines), and (2c) K6 so, on its register-block
+   path (16 x 16, and 128 x 128 in four column tiles) and its scalar
+   walk (5 x 7) (``K6 items`` lines).
 3. The main path at full size: a synthetic tensor of nell-2's shape
    (12092 x 9184 x 28818) with the generator's FROSTT-like skew and
    16,000,000 nonzeros.  MTTKRP (R=64), TTMc3 (R=S=16) and TTTP3 (R=64)
@@ -38,8 +40,11 @@ any failure exits non-zero):
    nonzeros), each against ``torch``.
 6. The paper kernels through ``kernels/ops.py`` on the 16 M tensor:
    ``mttkrp`` (K5 over its work items, then the combine of their
-   partial rows; block 256), ``ttmc_fiber`` (K6, block 128) and
-   ``tttp`` (K7, block 512), each against the ``torch`` engine's result.
+   partial rows; block 256), ``ttmc_fiber`` (K6 over K1's work items,
+   then the combine; block 128; a ``HOST`` line gives the host-clock
+   medians of the call's parts: layout upload, item cut, gathers,
+   wrapper) and ``tttp`` (K7, block 512), each against the ``torch``
+   engine's result.
 7. The LM kernels through ``kernels/ops.py``, at the widths of
    ``repro_torch.configs``, on data drawn from ``--seed`` by a
    ``torch.Generator`` on the card, each path against its
@@ -67,7 +72,7 @@ clock drifts), is taken again with twice the idle padding around the
 traced call (from 0.25 s for each path), and the run fails after six
 such traces.  The fused chain on ``cuda`` launches K3 over the chain's
 work items and the combine of their partial rows; ``ops.mttkrp`` K5
-over its own items and the combine of theirs.  Per kernel, on the
+over its own items and the combine of theirs, ``ops.ttmc_fiber`` K6 so.  Per kernel, on the
 inputs the path gave it: the kernel against its plain PyTorch version
 (tolerance ``1e-4 * max(1, max|plain|)``: float32 with another
 summation order; for bf16 results, where a float32 sum in another order
@@ -400,7 +405,7 @@ def chain_expr(ir) -> str:
 COMBINE_CALLERS = {"repro_torch.core.executor": "segment sum",
                    "repro_torch.kernels.codegen.lower_gpu": "split-K",
                    "repro_torch.kernels.codegen.stages": "K1/K3 items",
-                   "repro_torch.kernels.paper": "K5 items"}
+                   "repro_torch.kernels.paper": "K5/K6 items"}
 
 
 def recording_combines(sink: dict, calls: collections.Counter):
@@ -838,13 +843,21 @@ def paper_entries(captured: dict, calls: collections.Counter) -> list:
             ops += items.nitems * R
             stem, label = "mttkrp", f"({P}, {R}) -> ({nseg}, {R})"
         elif name == "ttmc_kernel":
+            # over K1's work items, as K5: one partial row an item, which
+            # the combine reads back
             ug, xf, block_ptr, nseg, block = args
+            items = kwargs["items"]
             P, R = ug.shape
             S = xf.shape[1]
             isz = ug.element_size()
-            nbytes = (P * (R + S) * isz + block_ptr.numel() * 8
-                      + nseg * R * S * isz)
+            part_bytes = items.nitems * R * S * isz
+            nbytes = (P * (R + S) * isz + items.item_block.numel() * 8
+                      + part_bytes)
             ops, lib = 2 * P * R * S, None
+            launch_work = (nbytes, ops)
+            nbytes += (part_bytes + items.item_ptr.numel() * 8
+                       + nseg * R * S * isz)
+            ops += items.nitems * R * S
             stem, label = "ttmc", f"({P}, {R}) x ({P}, {S}) -> " \
                 f"({nseg}, {R}, {S})"
         else:
@@ -1059,6 +1072,102 @@ def k1_item_checks(dev) -> None:
                                      f"pad rows is not zero")
 
 
+def k6_item_checks(dev) -> None:
+    """K6 over K1's work items on a skewed layout at the main path's
+    block (a third of the fibers in segment 0, cut into several items;
+    segment 1 pad rows alone), on its register-block path (16 x 16, and
+    128 x 128 in four column tiles) and its scalar walk (5 x 7), in
+    float32 and float64, against its plain version; the same bits on a
+    second call, one launch of K6 and one of the combine a call."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import native, paper
+    from repro_torch.kernels.codegen import ir
+    from repro_torch.kernels.segment import segment_ptr
+    from repro_torch.kernels.util import padded_segment_layout
+    rng = np.random.default_rng(1)
+    nseg, block = 64, 128
+    paths = {paper.TTMC_SCALAR: "scalar", paper.TTMC_OUTER: "outer"}
+    for R, S, nfib in ((16, 16, 120_000), (5, 7, 120_000),
+                       (128, 128, 12_000)):
+        seg = np.sort(rng.integers(2, nseg, nfib))
+        seg[:nfib // 3] = 0
+        lay = padded_segment_layout(np.sort(seg), nseg, block)
+        ptr = torch.from_numpy(segment_ptr(lay.block_seg, nseg))
+        items = ir.reduce_items(ptr, block)
+        gather = torch.from_numpy(lay.gather).long().to(dev)
+        mask = torch.from_numpy(lay.mask).to(dev)[:, None]
+        for dtype in (torch.float32, torch.float64):
+            ug = torch.randn((nfib, R), device=dev, dtype=dtype)[gather]
+            xf = torch.randn((nfib, S), device=dev, dtype=dtype)[gather]
+            args = (ug * mask, xf * mask, ptr.to(dev), nseg, block)
+            native.reset_launch_counts()
+            got = paper.ttmc_kernel(*args, items=items.to(dev))
+            torch.cuda.synchronize()
+            counts = native.launch_counts()
+            path = paths[paper.ttmc_path(*args[:2])]
+            check(f"K6 items {R}x{S} {str(dtype)[6:]} ({path})", got,
+                  paper.ttmc_kernel_plain(*args))
+            same = torch.equal(got, paper.ttmc_kernel(
+                *args, items=items.to(dev)))
+            log(f"K6 items {R}x{S} {str(dtype)[6:]}: path {path}, "
+                f"nitems {items.nitems} (segment 0: "
+                f"{int(items.item_ptr[1])}), cap {items.cap} blocks, "
+                f"launches {counts['ttmc']} + {counts['combine']}, the "
+                f"same bits on a second call {'ok' if same else 'FAIL'}")
+            if not same or counts["ttmc"] != 1 or counts["combine"] != 1:
+                raise AssertionError(f"K6 items {R}x{S}: other bits or "
+                                     f"launches {counts}")
+            if bool(got[1].any()):
+                raise AssertionError(f"K6 items {R}x{S}: a segment of pad "
+                                     f"rows is not zero")
+            del ug, xf, args, got
+
+
+def ttmc_fiber_host(ug, xf, layout, reps: int = 5) -> tuple[dict, str]:
+    """Host-clock medians (ms, over ``reps`` calls after one warm-up) of
+    the parts of one ``ops.ttmc_fiber`` call, each ended by
+    ``torch.cuda.synchronize()``: ``layout_arrays`` (of it, ``astype``:
+    the numpy cast of the gather to int64 alone), the item cut and its
+    upload, the gathers and masking, and the wrapper (K6 and the
+    combine); then the whole call, timed alone the same way.  Also
+    returns the path K6 took on the padded rows."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops, paper
+    dev = ug.device
+    laps = collections.defaultdict(list)
+    for rep in range(reps + 1):
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+
+        def lap(name: str) -> None:
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            if rep:
+                laps[name].append((now - t[0]) * 1e3)
+            t[0] = now
+
+        np.ascontiguousarray(layout.gather.astype(np.int64))
+        lap("astype")
+        gather, mask, block_ptr = ops.layout_arrays(layout, dev)
+        lap("layout_arrays")
+        items = ops.ttmc_fiber_items(layout).to(dev)
+        lap("items")
+        m = mask[:, None]
+        ugp, xfp = ug[gather] * m, xf[gather] * m
+        lap("gathers")
+        paper.ttmc_kernel(ugp, xfp, block_ptr, layout.nseg, layout.block,
+                          items=items)
+        lap("wrapper")
+        path = "outer" if paper.ttmc_path(ugp, xfp) == paper.TTMC_OUTER \
+            else "scalar"
+        del gather, mask, block_ptr, items, ugp, xfp
+        ops.ttmc_fiber(ug, xf, layout)
+        lap("whole call")
+    return {k: statistics.median(v) for k, v in laps.items()}, path
+
+
 def largest_buffer_bytes(spec, cand, levels, itemsize: int = 4) -> int:
     """The largest array one call of candidate ``cand`` makes, from the
     engines' rules: a term over a CSF prefix works on fiber rows (padded
@@ -1214,6 +1323,8 @@ def main(argv=None) -> int:
     phase_done("2 small tensor")
     k1_item_checks(dev)
     phase_done("2b K1 items")
+    k6_item_checks(dev)
+    phase_done("2c K6 items")
 
     # -- 3. the main path at full size --------------------------------- #
     t0 = time.perf_counter()
@@ -1420,8 +1531,16 @@ def main(argv=None) -> int:
     lay6 = ops.ttmc_fiber_layout(csf, 128)
     got = drv.drive("ops.ttmc_fiber",
                     lambda: ops.ttmc_fiber(ug, xf, lay6),
-                    expect=("ttmc",), measure_as="ops")
+                    expect=("ttmc", "combine"), measure_as="ops")
+    items6 = ops.ttmc_fiber_items(lay6)
+    log(f"K6 ops.ttmc_fiber: block {lay6.block}, P = {lay6.padded_len} "
+        f"padded rows ({lay6.nblocks} blocks) for {lay6.nseg} segments; "
+        f"nitems {items6.nitems}, cap {items6.cap}")
     check("ops.ttmc_fiber vs TTMc3 torch", got, torch_out["TTMc3"][rows1])
+    host, path6 = ttmc_fiber_host(ug, xf, lay6)
+    log(f"HOST ops.ttmc_fiber (K6 path {path6}) " + json.dumps(
+        {**host, "sum of parts": sum(v for k, v in host.items()
+                                     if k not in ("astype", "whole call"))}))
     del xf, ug
     f7 = factors["TTTP3"]
     u7, v7, w7 = (f7[t.name] for t in specs["TTTP3"].inputs

@@ -28,13 +28,16 @@
 // cap, kernels/paper.py), into items of at most a fixed number of
 // consecutive blocks; one thread block sums one item into a partial row,
 // and the segment combine (stage_kernels.cu) adds each segment's partial
-// rows in ascending item order.
+// rows in ascending item order.  K6 runs over work items too, cut at K1's
+// cap, and walks them with K1's outer product (item_walk.cuh).
 //
 // Every entry point launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "item_walk.cuh"
 
 namespace spttn {
 
@@ -146,38 +149,103 @@ int mttkrp_entry(const void* vals, const void* bg, const void* cg,
                                    block, R, partials, stream);
 }
 
-// K6: out[s, r, t] = sum over the fibers f of segment s of
-// ug[f, r] * xf[f, t] — per block of fibers the product ug^T xf, added
-// to the row.  One thread block per (segment, tile of 256 outputs); the
-// block stages ``chunk`` fibers of ug and xf in shared memory with
-// coalesced loads, then each thread adds its (r, t) over those fibers in
-// ascending order.
+// K6 over work items: partials[i, r * S + t] = sum over the rows n of
+// item i (blocks [item_block[i], item_block[i+1]), in the padded layout
+// whose pad rows are zero) of ug[n, r] * xf[n, t]; the segment combine
+// then adds each segment's partial rows in ascending item order, giving
+// out[s, r, t] = sum over the fibers of segment s of ug^T xf.  It is K1's
+// outer product (Zd,Ze->de) with no mask, cut at K1's cap
+// (ir.REDUCE_ITEM_ROWS rows an item) and walked by the same code
+// (item_walk.cuh), so one thread block no longer walks a heavy segment
+// alone.  One 256-thread block per (item, column tile); paths:
+//   kTtmcOuter   R and S multiples of kOuterBlock, ug, xf and partials on
+//                16-byte boundaries: a thread keeps a 4 x 4 register block
+//                of (r, t) sums (reduce_outer);
+//   kTtmcScalar  anything else: a thread sums one output (r, t), with the
+//                same row lanes, kReduceRows rows' loads in flight and the
+//                same lane tree.
+// Column tiles go across blockIdx.y, so R * S may exceed one block's
+// columns (R = S = 128: 1,024 register blocks in 4 tiles).
+constexpr int kTtmcScalar = 0, kTtmcOuter = 1;
+
+// kTtmcScalar: this thread's output o = r * S + t of the rows [n0, n1).
 template <typename T>
-__global__ void ttmc_kernel(const T* __restrict__ ug,
-                            const T* __restrict__ xf,
-                            const long long* __restrict__ block_ptr,
-                            int block, int R, int S, int chunk,
-                            T* __restrict__ out) {
-  extern __shared__ unsigned char smem[];
-  T* us = reinterpret_cast<T*>(smem);
-  T* xs = us + chunk * R;
-  const long long s = blockIdx.x;
+__device__ __forceinline__ void ttmc_scalar(const T* __restrict__ ug,
+                                            const T* __restrict__ xf,
+                                            long long n0, long long n1,
+                                            int R, int S,
+                                            T* __restrict__ prow) {
+  __shared__ T red[kReduceThreads];
+  const int lanes = blockDim.y;
   const int o = blockIdx.y * blockDim.x + threadIdx.x;
-  const int r = o / S, t = o - (o / S) * S;
-  T acc = T(0);
-  const long long n1 = block_ptr[s + 1] * block;
-  for (long long c = block_ptr[s] * block; c < n1; c += chunk) {
-    const int m = (int)(n1 - c < chunk ? n1 - c : chunk);
-    for (int i = threadIdx.x; i < m * R; i += blockDim.x)
-      us[i] = ug[c * R + i];
-    for (int i = threadIdx.x; i < m * S; i += blockDim.x)
-      xs[i] = xf[c * S + i];
-    __syncthreads();
-    if (o < R * S)
-      for (int f = 0; f < m; ++f) acc += us[f * R + r] * xs[f * S + t];
-    __syncthreads();
+  T acc[1] = {T(0)};
+  if (o < R * S) {
+    const int r = o / S, t = o - r * S;
+    for (long long n = n0 + threadIdx.y; n < n1;
+         n += (long long)lanes * kReduceRows) {
+      T u[kReduceRows], x[kReduceRows];
+#pragma unroll
+      for (int k = 0; k < kReduceRows; ++k) {
+        const long long m = n + (long long)k * lanes;
+        if (m < n1) {
+          u[k] = ug[m * R + r];
+          x[k] = xf[m * S + t];
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kReduceRows; ++k)
+        if (n + (long long)k * lanes < n1) acc[0] += u[k] * x[k];
+    }
   }
-  if (o < R * S) out[s * R * S + o] = acc;
+  add_lanes(acc, red);
+  if (threadIdx.y == 0 && o < R * S) prow[o] = acc[0];
+}
+
+template <typename T, int PATH>
+__global__ void __launch_bounds__(kReduceThreads)
+    ttmc_kernel(const T* __restrict__ ug, const T* __restrict__ xf,
+                const long long* __restrict__ item_block, int block, int R,
+                int S, T* __restrict__ partials) {
+  const long long item = blockIdx.x;
+  const long long n0 = item_block[item] * block;
+  const long long n1 = item_block[item + 1] * block;
+  T* prow = partials + item * R * S;
+  if constexpr (PATH == kTtmcOuter)
+    reduce_outer<T, false>(ug, R, xf, S, nullptr, n0, n1, prow);
+  else
+    ttmc_scalar(ug, xf, n0, n1, R, S, prow);
+}
+
+// K6's launch: threadIdx.x over the path's columns (outputs or register
+// blocks; the smallest power of two covering them, at most 256:
+// paper.ttmc_columns), the rest of the 256 threads row lanes.  The
+// register-block path on what it cannot read (R or S off kOuterBlock, a
+// base off 16 bytes) is refused, not run.
+template <typename T>
+int ttmc_entry(const void* ug, const void* xf, const void* item_block,
+               long long nitems, int block, int R, int S, int path,
+               void* partials, cudaStream_t stream) {
+  int cols = R * S;
+  if (path == kTtmcOuter) {
+    if (((uintptr_t)ug | (uintptr_t)xf | (uintptr_t)partials) % 16 ||
+        R <= 0 || S <= 0 || R % kOuterBlock || S % kOuterBlock)
+      return (int)cudaErrorInvalidValue;
+    cols = R * S / (kOuterBlock * kOuterBlock);
+  } else if (path != kTtmcScalar) {
+    return (int)cudaErrorInvalidValue;
+  }
+  int tx = 1;
+  while (tx < cols && tx < kReduceThreads) tx *= 2;
+  const dim3 threads(tx, kReduceThreads / tx);
+  const dim3 grid((unsigned)nitems, (cols + tx - 1) / tx);
+  const auto go = [&](auto kernel) {
+    kernel<<<grid, threads, 0, stream>>>(
+        (const T*)ug, (const T*)xf, (const long long*)item_block, block, R,
+        S, (T*)partials);
+    return (int)cudaGetLastError();
+  };
+  if (path == kTtmcOuter) return go(ttmc_kernel<T, kTtmcOuter>);
+  return go(ttmc_kernel<T, kTtmcScalar>);
 }
 
 // K7: out[n] = vals[n] * sum_r ug[n, r] * vg[n, r] * wg[n, r].  One thread
@@ -218,14 +286,11 @@ __global__ void tttp_kernel(const T* __restrict__ vals,
                                   block, R, partials, (cudaStream_t)stream);   \
   }                                                                            \
   extern "C" int spttn_ttmc_##SUFFIX(                                          \
-      const void* ug, const void* xf, const void* block_ptr, long long nseg,   \
-      int block, int R, int S, int chunk, void* out, void* stream) {           \
-    const dim3 grid((unsigned)nseg, (R * S + 255) / 256);                      \
-    spttn::ttmc_kernel<T><<<grid, 256, chunk * (R + S) * sizeof(T),            \
-                     (cudaStream_t)stream>>>(                                  \
-        (const T*)ug, (const T*)xf, (const long long*)block_ptr, block, R, S,  \
-        chunk, (T*)out);                                                       \
-    return (int)cudaGetLastError();                                            \
+      const void* ug, const void* xf, const void* item_block,                  \
+      long long nitems, int block, int R, int S, int path, void* partials,     \
+      void* stream) {                                                          \
+    return spttn::ttmc_entry<T>(ug, xf, item_block, nitems, block, R, S,       \
+                                path, partials, (cudaStream_t)stream);         \
   }                                                                            \
   extern "C" int spttn_tttp_##SUFFIX(                                          \
       const void* vals, const void* ug, const void* vg, const void* wg,        \

@@ -40,6 +40,8 @@
 
 #include <type_traits>
 
+#include "item_walk.cuh"
+
 namespace spttn {
 
 // One output column of one fiber: sum over the column's terms.  The
@@ -107,7 +109,9 @@ __device__ T block_partial(const T* __restrict__ a, long long a_rs,
 // the item in ascending order and issues the loads of kReduceRows rows
 // before it adds them.  A fixed shared-memory tree then adds the lanes
 // (lane 0 + lane h, for h = lanes/2 .. 1), and the block writes the
-// item's partial row.  No atomics: the same bits on every call.  Paths:
+// item's partial row.  No atomics: the same bits on every call.  The walk
+// of the outer path and the lane tree live in item_walk.cuh, shared with
+// K6 (paper_kernels.cu), which runs the same outer product.  Paths:
 //   kReduceVectors  every output column is one term, and runs of V
 //                   columns read V consecutive columns of A and of B from
 //                   a multiple of V (Zd,Zd->d): a thread sums one 16-byte
@@ -122,36 +126,8 @@ __device__ T block_partial(const T* __restrict__ a, long long a_rs,
 //                   at most kReduceHoist terms keeps its table entries in
 //                   registers, a longer one reads them once for the
 //                   kReduceRows rows in flight.
-constexpr int kReduceThreads = 256;
-constexpr int kReduceRows = 4;
 constexpr int kReduceHoist = 4;
-constexpr int kOuterBlock = 4;
 constexpr int kReduceTables = 0, kReduceVectors = 1, kReduceOuter = 2;
-
-template <typename T, int V>
-struct alignas(sizeof(T) * V) ReduceVec {
-  T x[V];
-};
-
-// Add the lanes of a 256-thread block: every thread holds W sums in acc
-// (shared slot i * 256 + thread); afterwards lane 0 holds the block's.
-template <typename T, int W>
-__device__ __forceinline__ void add_lanes(T (&acc)[W], T* red) {
-  const int me = threadIdx.y * blockDim.x + threadIdx.x;
-#pragma unroll
-  for (int i = 0; i < W; ++i) red[i * kReduceThreads + me] = acc[i];
-  __syncthreads();
-  for (int h = blockDim.y / 2; h > 0; h >>= 1) {
-    if (threadIdx.y < h) {
-#pragma unroll
-      for (int i = 0; i < W; ++i) {
-        acc[i] += red[i * kReduceThreads + me + h * blockDim.x];
-        red[i * kReduceThreads + me] = acc[i];
-      }
-    }
-    __syncthreads();
-  }
-}
 
 // kReduceTables: this thread's column o of the item's rows [n0, n1).
 template <typename T>
@@ -262,67 +238,6 @@ __device__ __forceinline__ void reduce_vectors(
   }
 }
 
-// kReduceOuter: this thread's register block c, rows d0 .. d0 + 3 of A's
-// columns times columns e0 .. e0 + 3 of B's (D = a_rs, E = b_rs).
-template <typename T>
-__device__ __forceinline__ void reduce_outer(
-    const T* __restrict__ a, long long a_rs, const T* __restrict__ b,
-    long long b_rs, const float* __restrict__ mask, long long n0,
-    long long n1, T* __restrict__ prow) {
-  constexpr int V = 16 / sizeof(T), RB = kOuterBlock, NV = RB / V;
-  using P = ReduceVec<T, V>;
-  __shared__ T red[RB * RB * kReduceThreads];
-  const int lanes = blockDim.y;
-  const int E = (int)b_rs, nbe = E / RB, nblk = (int)(a_rs / RB) * nbe;
-  const int c = blockIdx.y * blockDim.x + threadIdx.x;
-  const int d0 = c / nbe * RB, e0 = c % nbe * RB;
-  T acc[RB * RB];
-#pragma unroll
-  for (int i = 0; i < RB * RB; ++i) acc[i] = T(0);
-  if (c < nblk) {
-    const P* ap = reinterpret_cast<const P*>(a + d0);
-    const P* bp = reinterpret_cast<const P*>(b + e0);
-    const long long ars = a_rs / V, brs = b_rs / V;
-    for (long long n = n0 + threadIdx.y; n < n1;
-         n += (long long)lanes * kReduceRows) {
-      P av[kReduceRows][NV], bv[kReduceRows][NV];
-      T w[kReduceRows];
-#pragma unroll
-      for (int k = 0; k < kReduceRows; ++k) {
-        const long long m = n + (long long)k * lanes;
-        if (m < n1) {
-#pragma unroll
-          for (int v = 0; v < NV; ++v) {
-            av[k][v] = ap[m * ars + v];
-            bv[k][v] = bp[m * brs + v];
-          }
-          w[k] = T(mask[m]);
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < kReduceRows; ++k) {
-        if (n + (long long)k * lanes < n1) {
-#pragma unroll
-          for (int i = 0; i < RB; ++i) {
-            const T x = w[k] * av[k][i / V].x[i % V];
-#pragma unroll
-            for (int j = 0; j < RB; ++j)
-              acc[i * RB + j] += x * bv[k][j / V].x[j % V];
-          }
-        }
-      }
-    }
-  }
-  add_lanes(acc, red);
-  if (threadIdx.y == 0 && c < nblk) {
-#pragma unroll
-    for (int i = 0; i < RB; ++i)
-#pragma unroll
-      for (int j = 0; j < RB; ++j)
-        prow[(long long)(d0 + i) * E + e0 + j] = acc[i * RB + j];
-  }
-}
-
 template <typename T, int PATH>
 __global__ void __launch_bounds__(kReduceThreads)
     reduce_kernel(const T* __restrict__ a, long long a_rs,
@@ -341,7 +256,7 @@ __global__ void __launch_bounds__(kReduceThreads)
     reduce_vectors(a, a_rs, b, b_rs, mask, n0, n1, a_idx, b_idx, out_w,
                    prow);
   else if constexpr (PATH == kReduceOuter)
-    reduce_outer(a, a_rs, b, b_rs, mask, n0, n1, prow);
+    reduce_outer<T, true>(a, a_rs, b, b_rs, mask, n0, n1, prow);
   else
     reduce_tables(a, a_rs, b, b_rs, mask, n0, n1, out_ptr, a_idx, b_idx,
                   out_w, prow);

@@ -4,8 +4,9 @@ The kernels live in ``repro_torch/csrc/*.cu`` as plain C entry points.
 At first use :func:`load_library` compiles each source with its own
 ``nvcc -c`` for ``sm_90a`` (all started together), links the objects
 into one shared library under ``repro_torch/_build/`` and loads it with
-``ctypes``.  The library's name carries a hash of the sources and
-flags, so an edited source is rebuilt and an unchanged one is reused.
+``ctypes``.  The library's name carries a hash of the sources, the headers
+they include (``csrc/*.cuh``) and the flags, so an edited source or
+header is rebuilt and an unchanged tree is reused.
 Nothing here runs at import time: this module imports on hosts without
 CUDA, and only a launch needs the toolkit.
 
@@ -148,6 +149,16 @@ def _run(cmds: list[list[str]]) -> str:
     return "".join(outs)
 
 
+def source_digest(csrc: Path = CSRC_DIR) -> str:
+    """The first 16 hex digits of a hash of the flags and of every source
+    and header in ``csrc`` (``*.cu``, ``*.cuh``): the build's name, so
+    that an edit of either is rebuilt."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted([*csrc.glob("*.cu"), *csrc.glob("*.cuh")]):
+        digest.update(src.name.encode() + src.read_bytes())
+    return digest.hexdigest()[:16]
+
+
 def build() -> tuple[Path, float, str]:
     """Compile ``csrc/*.cu`` into one shared library (reused when the
     sources and flags are unchanged): one ``nvcc -c`` per source, all
@@ -155,15 +166,13 @@ def build() -> tuple[Path, float, str]:
     seconds spent building (0.0 when it was reused) and the compiler's
     report."""
     sources = sorted(CSRC_DIR.glob("*.cu"))
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
-        digest.update(src.name.encode() + src.read_bytes())
-    lib = BUILD_DIR / f"libspttn_{digest.hexdigest()[:16]}.so"
+    digest = source_digest()
+    lib = BUILD_DIR / f"libspttn_{digest}.so"
     if lib.exists():
         return lib, 0.0, ""
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+    tag = f"{digest}.{os.getpid()}"
     objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
     report = _run([[_nvcc(), *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
                    for src, obj in zip(sources, objs)])

@@ -28,6 +28,7 @@ from repro_torch.kernels import local_attn as attn_k
 from repro_torch.kernels import paper, ref
 from repro_torch.kernels import rglru as rglru_k
 from repro_torch.kernels import wkv6 as wkv6_k
+from repro_torch.kernels.codegen.ir import ChainItems, reduce_items
 from repro_torch.kernels.segment import segment_ptr
 from repro_torch.kernels.util import PaddedSegments, padded_segment_layout
 from repro_torch.sparse.csf import CSFTensor, level_segments
@@ -85,18 +86,29 @@ def mttkrp(csf: CSFTensor, b: torch.Tensor, c: torch.Tensor,
 # --------------------------------------------------------------------------- #
 # TTMc fiber stage:  OUT[i] += U[j_f]^T ⊗ X[f]   over level-2 fibers f
 # --------------------------------------------------------------------------- #
+def ttmc_fiber_items(layout: PaddedSegments) -> ChainItems:
+    """K6's work items (K1's cut,
+    :func:`~repro_torch.kernels.codegen.ir.reduce_items`), cut on the host
+    from the layout's block offsets."""
+    ptr = torch.from_numpy(segment_ptr(layout.block_seg, layout.nseg))
+    return reduce_items(ptr, layout.block)
+
+
 def ttmc_fiber(ug: torch.Tensor, xf: torch.Tensor, layout: PaddedSegments,
                use_kernel: bool = True) -> torch.Tensor:
     """``ug`` ``(nfib_2, R)`` gathered U rows, ``xf`` ``(nfib_2, S)`` fiber
-    intermediates -> K6 ``(nseg, R, S)``."""
+    intermediates -> K6 ``(nseg, R, S)``, over work items cut once per
+    call on the host (as the reference builds its layout arrays per
+    call)."""
     gather, mask, block_ptr = layout_arrays(layout, ug.device)
     m = mask[:, None]
     if not use_kernel:
         seg = torch.from_numpy(np.repeat(layout.block_seg, layout.block))
         return ref.ttmc_fiber_ref(xf[gather] * m, ug[gather],
                                   seg.to(ug.device), layout.nseg)
+    items = ttmc_fiber_items(layout).to(ug.device)
     return paper.ttmc_kernel(ug[gather] * m, xf[gather] * m, block_ptr,
-                             layout.nseg, layout.block)
+                             layout.nseg, layout.block, items=items)
 
 
 # --------------------------------------------------------------------------- #

@@ -21,7 +21,14 @@ owns blocks ``[block_ptr[s], block_ptr[s+1])`` of ``block`` rows each.
   atomics, the same bits on every call.
 * **K6** :func:`ttmc_kernel` replaces ``src/repro/kernels/ttmc.py:33``
   ``ttmc_pallas``: ``out[s] += ugᵀ·xf`` per block of fibers, giving
-  ``(nseg, R, S)``, the product written in the kernel's body.
+  ``(nseg, R, S)``.  That is K1's outer product ``Zd,Ze->de`` with zero
+  pad rows and no mask, so K6 runs over K1's work items
+  (:func:`~repro_torch.kernels.codegen.ir.reduce_items`, cut on the host
+  once per call) with K1's walk: 4 × 4 register blocks of ``(r, t)`` sums
+  fed by 16-byte loads where R and S are multiples of 4 and the bases
+  16-byte aligned (:func:`ttmc_path`), one output a thread otherwise;
+  then the segment combine adds each segment's partial rows in item
+  order.  Two launches, no atomics, the same bits on every call.
 * **K7** :func:`tttp_kernel` replaces ``src/repro/kernels/tttp.py:24``
   ``tttp_pallas``: ``out[n] = vals[n]·Σ_r U·V·W``, a warp per row, no
   cross-block state.
@@ -33,7 +40,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import native, ref
-from repro_torch.kernels.codegen.ir import accumulator_type, chain_items
+from repro_torch.kernels.codegen.ir import (ChainItems, accumulator_type,
+                                            chain_items, reduce_items)
+from repro_torch.kernels.codegen.stages import OUTER_BLOCK
 from repro_torch.kernels.segment import segment_combine
 
 #: K5's work items hold at most this many consecutive blocks of one
@@ -96,9 +105,37 @@ def ttmc_kernel_plain(ug, xf, block_ptr, nseg: int,
     return ref.ttmc_fiber_ref(xf, ug, seg, nseg)
 
 
-def ttmc_kernel(ug, xf, block_ptr, nseg: int, block: int) -> torch.Tensor:
+#: K6's paths, the kernel's ``kTtmc*``: one thread an output ``(r, t)``,
+#: or K1's 4 x 4 register blocks of the outer product.
+TTMC_SCALAR, TTMC_OUTER = 0, 1
+
+
+def ttmc_path(ug: torch.Tensor, xf: torch.Tensor) -> int:
+    """K6's path on these rows: :data:`TTMC_OUTER` when R and S are
+    multiples of the register block's edge and both bases lie on 16-byte
+    boundaries, :data:`TTMC_SCALAR` otherwise."""
+    R, S = ug.shape[1], xf.shape[1]
+    if R % OUTER_BLOCK or S % OUTER_BLOCK or \
+            any(t.data_ptr() % 16 for t in (ug, xf)):
+        return TTMC_SCALAR
+    return TTMC_OUTER
+
+
+def ttmc_columns(R: int, S: int, path: int) -> int:
+    """The threads a row lane of K6 spans on ``path``: one per output or
+    per register block."""
+    return R * S // (OUTER_BLOCK * OUTER_BLOCK) if path == TTMC_OUTER \
+        else R * S
+
+
+def ttmc_kernel(ug, xf, block_ptr, nseg: int, block: int,
+                items: ChainItems | None = None) -> torch.Tensor:
     """K6: ug ``(P, R)``, xf ``(P, S)`` (pad rows zero) ->
-    ``(nseg, R, S)``."""
+    ``(nseg, R, S)``: the kernel over ``items`` (K1's, the layout's
+    :func:`~repro_torch.kernels.codegen.ir.reduce_items` on the rows'
+    device), then the combine of their partial rows.  Given ``items``,
+    nothing is read back to the host; without them they are cut here
+    from a host copy of ``block_ptr``."""
     if ug.device.type == "cpu":
         return ttmc_kernel_plain(ug, xf, block_ptr, nseg, block)
     dtype = accumulator_type(torch.promote_types(ug.dtype, xf.dtype))
@@ -108,14 +145,24 @@ def ttmc_kernel(ug, xf, block_ptr, nseg: int, block: int) -> torch.Tensor:
     _check(block_ptr, nseg, block, P, ug, xf)
     if xf.shape[0] != P:
         raise ValueError("ttmc_kernel: ug and xf need the same rows")
-    # fibers staged in shared memory per step: at most 32, within 48 KB
-    chunk = max(1, min(32, 49152 // ((R + S) * ug.element_size())))
-    out = torch.empty((nseg, R, S), dtype=dtype, device=ug.device)
-    native.check_grid(nseg, -(-(R * S) // 256))
-    if nseg * R * S:
-        native.launch("ttmc", dtype, ug.device, ug, xf, block_ptr, nseg,
-                      block, R, S, chunk, out)
-    return out
+    if items is None:
+        items = reduce_items(block_ptr.cpu(), block).to(ug.device)
+    native.check_cuda_tensors(ug, items.item_block, items.item_ptr)
+    native.check_cuda_tensors(items.item_block, items.item_ptr,
+                              dtype=torch.int64)
+    if items.item_ptr.shape != (nseg + 1,):
+        raise ValueError(f"ttmc_kernel: item_ptr "
+                         f"{tuple(items.item_ptr.shape)} for {nseg} "
+                         f"segments")
+    path = ttmc_path(ug, xf)
+    cols = ttmc_columns(R, S, path)
+    partials = torch.empty((items.nitems, R * S), dtype=dtype,
+                           device=ug.device)
+    native.check_grid(items.nitems, -(-cols // native.column_threads(cols)))
+    if items.nitems * R * S:
+        native.launch("ttmc", dtype, ug.device, ug, xf, items.item_block,
+                      items.nitems, block, R, S, path, partials)
+    return segment_combine(partials, items.item_ptr, nseg).view(nseg, R, S)
 
 
 def tttp_kernel_plain(vals, ug, vg, wg) -> torch.Tensor:

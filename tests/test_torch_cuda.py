@@ -5,7 +5,10 @@ scalar path, global tables and
 float64 table-order sums; K3, the fused chain, on 2- and 3-level
 chains over work items from one block to the default cut, the same
 bits run to run; K5-K7, the paper kernels, K5 over work items on a
-skewed pattern on its vector and scalar paths, the same bits twice;
+skewed pattern on its vector and scalar paths, the same bits twice; K6
+over K1's work items on its register-block and scalar paths (R = S =
+128 in four column tiles, a misaligned base), the same bits twice, and
+in float64 the bits of a PyTorch walk of its items, as K1's outer path;
 K8-K11, the LM kernels, in
 float32 and bfloat16 at sizes no tile or chunk divides, K8's float32
 path at full tiles, ragged edges, D = 0, on misaligned bases (its
@@ -586,7 +589,7 @@ def test_paper_kernels_match_plain(cuda, dtype):
     torch.cuda.synchronize()
     counts = native.launch_counts()
     assert (counts["mttkrp"], counts["ttmc"], counts["tttp"]) == (1, 1, 1)
-    assert counts["combine"] == 1                 # K5's items' partial rows
+    assert counts["combine"] == 2         # K5's and K6's items' partial rows
     # each wrapper against its own plain version on the same inputs
     gather, mask, ptr = ops.layout_arrays(lay, cuda)
     _close(paper.ttmc_kernel(ug[gather], xf[gather], ptr, lay.nseg, 8),
@@ -634,6 +637,170 @@ def test_mttkrp_kernel_items_match_plain(cuda, dtype, R, offset):
     again = paper.mttkrp_kernel(*args)
     torch.cuda.synchronize()
     assert torch.equal(got, again)
+
+
+# --------------------------------------------------------------------- #
+# K6 over work items, on K1's walk
+# --------------------------------------------------------------------- #
+def item_walk(per_row, items, block, lanes, nseg):
+    """The work-item walk of K1 and K6 in plain PyTorch, in the kernels'
+    order: in each item, lane y of ``lanes`` sums the item's rows y, y +
+    lanes, ... of ``per_row`` (one row's terms, ``(P, w)``) in ascending
+    order; a fixed tree adds the lanes (lane y += lane y + h, for h =
+    lanes / 2 .. 1) into the item's partial row; the combine adds each
+    segment's partial rows in ascending item order, from zero.  Padding
+    an item's rows with zero rows adds nothing."""
+    ib = items.item_block.tolist()
+    nrows = [(y - x) * block for x, y in zip(ib, ib[1:])]
+    steps = max(-(-n // lanes) for n in nrows)
+    rows = per_row.new_zeros((items.nitems, steps * lanes, per_row.shape[1]))
+    for i, n in enumerate(nrows):
+        rows[i, :n] = per_row[ib[i] * block:ib[i] * block + n]
+    rows = rows.view(items.nitems, steps, lanes, -1)
+    lane = torch.zeros_like(rows[:, 0])
+    for k in range(steps):
+        lane += rows[:, k]
+    h = lanes // 2
+    while h:
+        lane[:, :h] += lane[:, h:2 * h]
+        h //= 2
+    ptr = items.item_ptr.tolist()
+    out = per_row.new_zeros((nseg, per_row.shape[1]))
+    for k in range(max(y - x for x, y in zip(ptr, ptr[1:]))):
+        segs = [s for s in range(nseg) if ptr[s] + k < ptr[s + 1]]
+        out[segs] += lane[[ptr[s] + k for s in segs], 0]
+    return out
+
+
+def _powers_of_two(rng, shape):
+    """Values +-2**k, k in -2 .. 2.  A product with one is exact, so the
+    kernel's fused multiply-add and PyTorch's multiply, then add, round
+    each sum alike: the order of the sums alone decides the bits."""
+    return (rng.choice([-1.0, 1.0], shape)
+            * 2.0 ** rng.integers(-2, 3, shape))
+
+
+def _ttmc_inputs(dev, dtype, R, S, nfib=20000, offset=0, xf_values=None):
+    """K6's inputs on a skewed layout: 40 segments, a third of the fibers
+    in segment 0, segment 1 pad rows alone, block 16; pad rows zero as
+    ``ops.ttmc_fiber`` makes them.  ``offset`` elements move ``ug``'s
+    base off 16 bytes."""
+    rng = np.random.default_rng(13)
+    nseg, block = 40, 16
+    seg = np.sort(rng.integers(2, nseg, size=nfib))
+    seg[: nfib // 3] = 0
+    lay = padded_segment_layout(np.sort(seg), nseg, block)
+    g = torch.from_numpy(lay.gather).long()
+    m = torch.from_numpy(lay.mask).double()[:, None]
+    ug = torch.from_numpy(rng.standard_normal((nfib, R)))[g] * m
+    xf = torch.from_numpy(xf_values(rng, (nfib, S)) if xf_values else
+                          rng.standard_normal((nfib, S)))[g] * m
+    flat = torch.zeros(ug.numel() + offset, dtype=dtype, device=dev)
+    flat[offset:] = ug.flatten().to(dev, dtype)
+    ug = flat[offset:].view(ug.shape)
+    ptr = torch.from_numpy(segment_ptr(lay.block_seg, nseg)).to(dev)
+    return ug, xf.to(dev, dtype), ptr, nseg, block
+
+
+K6_CASES = [
+    pytest.param(16, 16, 20000, 0, paper.TTMC_OUTER, id="outer-16x16"),
+    pytest.param(5, 7, 20000, 0, paper.TTMC_SCALAR, id="scalar-5x7"),
+    pytest.param(128, 128, 3000, 0, paper.TTMC_OUTER,
+                 id="outer-128x128-four-tiles"),
+    pytest.param(16, 16, 20000, 1, paper.TTMC_SCALAR,
+                 id="scalar-misaligned"),
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("R,S,nfib,offset,path", K6_CASES)
+def test_ttmc_kernel_items_match_plain(cuda, dtype, R, S, nfib, offset,
+                                       path):
+    """K6 over work items on a skewed layout, on each of its paths (R = S
+    = 128 spans four column tiles; a base off 16 bytes takes the scalar
+    walk, not a refusal): items of three blocks (segment 0 spans dozens)
+    and the wrapper's own cut, against its plain version; one launch of
+    K6 and one of the combine a call, the same bits on a second call,
+    and a zero row for a segment of pad rows."""
+    ug, xf, ptr, nseg, block = _ttmc_inputs(cuda, dtype, R, S, nfib,
+                                            offset)
+    assert paper.ttmc_path(ug, xf) == path
+    if R * S > 256 and path == paper.TTMC_OUTER:
+        cols = paper.ttmc_columns(R, S, path)
+        assert cols // native.column_threads(cols) == 4
+    want = paper.ttmc_kernel_plain(ug, xf, ptr, nseg, block)
+    small = ir.chain_items(ptr.cpu(), 3).to(cuda)
+    assert int(small.item_ptr[1]) > 20
+    for items in (small, None):
+        native.reset_launch_counts()
+        got = paper.ttmc_kernel(ug, xf, ptr, nseg, block, items=items)
+        torch.cuda.synchronize()
+        counts = native.launch_counts()
+        assert counts["ttmc"] == 1 and counts["combine"] == 1
+        _close(got, want, dtype)
+        again = paper.ttmc_kernel(ug, xf, ptr, nseg, block, items=items)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        assert not bool(got[1].any())
+
+
+@pytest.mark.parametrize("R,S,path", [(16, 16, paper.TTMC_OUTER),
+                                      (5, 7, paper.TTMC_SCALAR)],
+                         ids=["outer", "scalar"])
+def test_ttmc_kernel_f64_bits_are_the_walk(cuda, R, S, path):
+    """K6 in float64 gives, bit for bit, :func:`item_walk` of the same
+    items with its path's row lanes (xf in powers of two, so that a
+    fused multiply-add rounds as a multiply and an add do)."""
+    ug, xf, ptr, nseg, block = _ttmc_inputs(
+        cuda, torch.float64, R, S, xf_values=_powers_of_two)
+    assert paper.ttmc_path(ug, xf) == path
+    items = ir.chain_items(ptr.cpu(), 3)
+    got = paper.ttmc_kernel(ug, xf, ptr, nseg, block, items=items.to(cuda))
+    cols = paper.ttmc_columns(R, S, path)
+    per_row = (ug[:, :, None] * xf[:, None, :]).reshape(ug.shape[0], -1)
+    want = item_walk(per_row.cpu(), items, block,
+                     256 // native.column_threads(cols), nseg)
+    assert torch.equal(got.reshape(nseg, -1).cpu(), want)
+
+
+def test_reduce_outer_f64_bits_are_the_walk(cuda):
+    """K1's outer path (``Zd,Ze->de``, the walk K6 shares) in float64
+    gives, bit for bit, :func:`item_walk` of the same items, its row
+    weighted by the mask (B in powers of two, as above)."""
+    ops_ = REDUCE_CASES[1].values[:3]
+    st, tables, ptr, mask, padded = _skewed_reduce_call(
+        *ops_, 40, 0, torch.float64, cuda)
+    rng = np.random.default_rng(17)
+    padded[1] = torch.from_numpy(_powers_of_two(
+        rng, tuple(padded[1].shape))).to(cuda)
+    assert stages.reduce_launch_path(st, padded) == stages.REDUCE_OUTER
+    items = ir.chain_items(ptr.cpu(), 3)
+    got = stages.run_reduce_stage(st, tables, ptr, mask, padded,
+                                  torch.float64, items.to(cuda))
+    a = mask.double()[:, None] * padded[0]
+    per_row = (a[:, :, None] * padded[1][:, None, :]).reshape(a.shape[0],
+                                                              -1)
+    cols = stages.reduce_columns(st, stages.REDUCE_OUTER, 8)
+    want = item_walk(per_row.cpu(), items, st.block,
+                     256 // native.column_threads(cols), st.nseg)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_ttmc_kernel_given_its_items_reads_nothing_back(cuda):
+    """Given its items (as ``ops.ttmc_fiber`` passes them), K6's wrapper
+    makes no device-to-host read: it runs under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+    ug, xf, ptr, nseg, block = _ttmc_inputs(cuda, torch.float32, 16, 16)
+    items = ir.reduce_items(ptr.cpu(), block).to(cuda)
+    want = paper.ttmc_kernel(ug, xf, ptr, nseg, block, items=items)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = paper.ttmc_kernel(ug, xf, ptr, nseg, block, items=items)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 # --------------------------------------------------------------------- #

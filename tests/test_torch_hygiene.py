@@ -208,6 +208,25 @@ def test_entry_point_signatures_match_the_ctypes_table(stem):
         assert [_C_TYPES[t] for t in types] == native._SIGNATURES[stem]
 
 
+def test_build_digest_covers_sources_and_headers(tmp_path):
+    """The kernel library's name hashes every ``csrc/*.cu`` and the
+    headers they include (``csrc/*.cuh``): editing either in a copy of
+    ``csrc/`` gives another digest, so a stale library is never
+    reused."""
+    import shutil
+    csrc = tmp_path / "csrc"
+    shutil.copytree(native.CSRC_DIR, csrc)
+    assert sorted(p.name for p in csrc.glob("*.cuh"))
+    first = native.source_digest(csrc)
+    assert first == native.source_digest(native.CSRC_DIR)
+    for pattern in ("*.cuh", "*.cu"):
+        src = sorted(csrc.glob(pattern))[0]
+        src.write_text(src.read_text() + "\n// edited\n")
+        edited = native.source_digest(csrc)
+        assert edited != first
+        first = edited
+
+
 def test_product_kernel_shared_limit_is_the_wrappers():
     """K2's launcher sets the kernel's shared-memory limit once to the
     most ``stages.product_tiling`` may ask for, ``MAX_SHARED_BYTES``."""
