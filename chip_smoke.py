@@ -57,8 +57,33 @@ any failure exits non-zero):
    WKV6 (K10, B = 8,
    T = 4,096, 40 heads of 64; bf16 and f32); recurrentgemma-9b's RG-LRU
    (K11, B = 8, T = 4,096, D = 4,096; bf16 and f32).
+8. Memory-budgeted sliced execution on the 16 M tensor: MTTKRP at a
+   1 GiB budget and TTTP3 at 2 GiB through ``execute_plan(...,
+   memory_budget=)`` on ``"cuda"`` and ``"cuda-splitk"``.  The priced
+   decisions must be MTTKRP ``a`` in 2 output chunks and TTTP3 ``r`` in 3
+   contracted chunks; every kernel of the unsliced path must launch once
+   a chunk; each result is held against the ``torch`` engine's unsliced
+   one, and its peak memory must stay under the unsliced path's.  A
+   ``SLICED`` line per run gives the decision (priced bytes), the sliced
+   and unsliced path ms, both measured peaks and the launches.
+9. The plan service (``PlanService``) dispatching MoE routing at
+   granite-moe-1b-a400m's widths (4,096 tokens, 32 experts, top-8,
+   d_model 1,024, dropless C = 4,096): 8 requests, the top-8 of normal
+   logits from ``--seed``, 1 % of the tokens redrawn in requests 2-7,
+   request 8 repeating request 1.  A ``SERVE`` line per request gives its
+   tier (request 1 must be ``cold``, request 8 ``exact``), resolution
+   seconds, dispatch ms, the winner's engine and the kernels launched;
+   each output must equal a plain scatter of ``X``'s rows bit for bit.
+   Then request 1 and its repeat through services with a 256 MiB budget
+   (the tuned winner, and the ``cuda`` engine forced): ``d`` in 3 chunks,
+   the same bits, one K2 launch a chunk on a code-generator engine.
+   Phases 8 and 9 count each path's launches around one run (the counts
+   zeroed just before it, read just after, and added to the summary's)
+   and trace each sliced path and the hot and budgeted dispatches
+   (``PROFILE`` lines); their kernels are not measured alone again (they
+   are the stage kernels phases 3-5 measure, at other widths).
 
-Every path is timed (CUDA events, median of 10 after 2 warm-ups) and its
+Every path of phases 2-7 is timed (CUDA events, median of 10 after 2 warm-ups) and its
 peak memory read.  Then one counted run, with the launch counts zeroed
 just before it and read just after, records the inputs of every kernel
 it launches and how many calls each made; it fails if a kernel the path
@@ -126,6 +151,18 @@ MOE_TOKENS = 4096                # K8's tokens per expert-FFN call
 # every candidate's largest buffer stays under this (the card has 80 GB;
 # the operand, its layouts and the other buffers of a call need the rest)
 FIT_BYTES = 24 * 2**30
+# phase 8: (spec, memory budget, the slice decision the pricing must
+# give at the 16 M tensor's profile: mode, chunks, kind, priced unsliced
+# and chunk bytes)
+SLICED_CASES = (("MTTKRP", 2**30, ("a", 2, "output", 1_263_228_160,
+                                   663_614_080)),
+                ("TTTP3", 2 * 2**30, ("r", 3, "contracted", 5_423_228_160,
+                                      1_948_234_680)))
+# phase 9: routing requests, the budgeted service's budget and the
+# decision it must give for the dispatch tec,td->ecd
+SERVE_REQUESTS = 8
+SERVE_BUDGET = 256 * 2**20
+SERVE_DECISION = ("d", 3, "output", 553_779_200, 185_040_896)
 # kernel stem -> its name in a profiler trace
 TRACE_NAMES = {stem: f"spttn::{stem}_kernel<" for stem in (
     "reduce", "product", "splitk", "combine", "chain", "mttkrp", "ttmc",
@@ -1168,6 +1205,201 @@ def ttmc_fiber_host(ug, xf, layout, reps: int = 5) -> tuple[dict, str]:
     return {k: statistics.median(v) for k, v in laps.items()}, path
 
 
+def sliced_paths(specs, factors, arrays, levels, torch_out, drv) -> None:
+    """Phase 8: each of ``SLICED_CASES`` through ``execute_plan`` with its
+    memory budget on both code-generator engines, after the same path
+    unsliced: the decision must be the one priced, every kernel of the
+    unsliced path must launch once a chunk, the result must agree with
+    the ``torch`` engine's unsliced one, and the sliced peak must stay
+    under the unsliced one (the priced bytes are printed beside both; the
+    engines' dense TTTP3 intermediate is not priced)."""
+    import torch
+
+    from repro_torch.core.executor import execute_plan
+    from repro_torch.core.planner import plan
+    from repro_torch.core.slicing import plan_decision, stamp_plan_slicing
+    for name, budget, want in SLICED_CASES:
+        spec, f = specs[name], factors[name]
+        p = plan(spec, nnz_levels=levels)
+        decision = plan_decision(stamp_plan_slicing(p, levels, budget),
+                                 levels)
+        if dataclasses.astuple(decision) != want:
+            raise AssertionError(f"{name}: sliced as {decision}, expected "
+                                 f"{want}")
+        for backend in ("cuda", "cuda-splitk"):
+            def run(budget=None, p=p, f=f, backend=backend):
+                return execute_plan(p, arrays, f, backend=backend,
+                                    memory_budget=budget)
+
+            unsliced, once = peak_and_launches(run)
+            sliced, counts = peak_and_launches(lambda: run(budget), (
+                f"sliced {name} {backend} vs torch", torch_out[name]))
+            for stem, n in counts.items():
+                drv.launches[stem] += n
+            grown = {stem: n for stem, n in counts.items()
+                     if n != decision.chunks * once[stem]}
+            if grown or not (once["reduce"] + once["product"]
+                             + once["splitk"]):
+                raise AssertionError(
+                    f"sliced {name} {backend}: launches {counts}, unsliced "
+                    f"{once}; every kernel must launch once a chunk")
+            ms = time_ms(lambda: run(budget))
+            rec = {"spec": name, "backend": backend, "budget": budget,
+                   **dataclasses.asdict(decision), "ms": ms,
+                   "unsliced_ms": time_ms(run),
+                   "peak_bytes_measured": sliced,
+                   "unsliced_peak_bytes_measured": unsliced,
+                   "resident_bytes": torch.cuda.memory_allocated(),
+                   "launches": {k: n for k, n in counts.items() if n},
+                   "unsliced_launches": {k: n for k, n in once.items()
+                                         if n}}
+            log("SLICED " + json.dumps(rec))
+            profile_path(f"sliced {name} {backend}", lambda: run(budget),
+                         ms, {})
+            if sliced >= unsliced:
+                raise AssertionError(f"sliced {name} {backend} peaked at "
+                                     f"{sliced} bytes, unsliced {unsliced}")
+            torch.cuda.empty_cache()
+
+
+def peak_and_launches(run, against=None):
+    """Run ``run`` once with the peak-memory counter and the launch counts
+    reset just before it; returns (peak bytes, launch counts).  With
+    ``against`` = (label, want), the result is held to ``want``."""
+    import torch
+
+    from repro_torch.kernels import native
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    native.reset_launch_counts()
+    got = run()
+    torch.cuda.synchronize()
+    counts = native.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if against is not None:
+        check(against[0], got, against[1])
+    del got
+    return peak, counts
+
+
+def scatter_rows(coo, x):
+    """The plain MoE dispatch: each routed token's row of ``x`` copied
+    into its (expert, slot) row of a zero ``(E, C, D)`` tensor."""
+    import torch
+    _, E, C = coo.shape
+    t, e, c = (torch.from_numpy(coo.coords[:, m].astype("int64")).to(
+        x.device) for m in range(3))
+    out = torch.zeros((E, C, x.shape[-1]), dtype=x.dtype, device=x.device)
+    out[e, c] = x[t]
+    return out
+
+
+def serve_stream(moe, dev, seed: int, drv) -> None:
+    """Phase 9: ``PlanService`` over a stream of routing patterns at
+    ``moe``'s widths (the dropless capacity C = N), each dispatch held to
+    the plain scatter bit for bit; then the same first request through a
+    service with a memory budget (on the tuned winner, and on the ``cuda``
+    engine forced), which must slice ``d`` as priced and give the same
+    bits."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.slicing import plan_decision
+    from repro_torch.kernels import native
+    from repro_torch.serve import PlanService, moe_routing_coo
+    from repro_torch.sparse import build_csf
+    E, D, k = moe.moe.n_experts, moe.d_model, moe.moe.top_k
+    N = MOE_TOKENS
+    C = max(8, -(-N // 8) * 8)             # dropless (moe.py:114)
+    rng = np.random.default_rng(seed)
+    logits = rng.standard_normal((N, E))
+    stream = []
+    for r in range(SERVE_REQUESTS - 1):
+        if r:                               # redraw 1 % of the tokens
+            who = rng.choice(N, N // 100, replace=False)
+            logits[who] = rng.standard_normal((len(who), E))
+        stream.append(np.argsort(-logits, axis=1)[:, :k])
+    stream.append(stream[0])                # the last repeats the first
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    x = torch.randn((N, D), generator=gen, device=dev)
+    os.makedirs(native.BUILD_DIR, exist_ok=True)
+    cache_dir = tempfile.mkdtemp(prefix="serve-", dir=native.BUILD_DIR)
+    svc = PlanService(cache_dir=cache_dir)
+    log(f"serve: {moe.name} dispatch tec,td->ecd, N {N}, E {E}, top-{k}, "
+        f"C {C}, d {D}; {len(stream)} requests; tuner {svc.config}")
+
+    def dispatch(service, label, request, coo, want):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        native.reset_launch_counts()
+        start.record()
+        out, st = service.dispatch(coo, x)
+        end.record()
+        end.synchronize()
+        counts = native.launch_counts()
+        for stem, n in counts.items():
+            drv.launches[stem] += n
+        p = service._plans[st.key]
+        rec = {"service": label, "request": request, "kind": st.kind,
+               "resolve_s": st.seconds, "dispatch_ms": start.elapsed_time(
+                   end), "backend": p.backend, "slice_mode": p.slice_mode,
+               "slice_chunks": p.slice_chunks, "nnz": coo.nnz,
+               "peak_bytes": torch.cuda.max_memory_allocated(),
+               "launches": {s: n for s, n in counts.items() if n},
+               "same_bits": bool(torch.equal(out, want))}
+        log("SERVE " + json.dumps(rec))
+        if not rec["same_bits"]:
+            raise AssertionError(f"{label} request {request}: the dispatch "
+                                 f"differs from the plain scatter")
+        del out
+        return p, st, counts
+
+    coos = [moe_routing_coo(idx, E, C) for idx in stream]
+    first = scatter_rows(coos[0], x)
+    kinds = []
+    for r, coo in enumerate(coos, 1):
+        want = first if r == len(coos) else scatter_rows(coo, x)
+        _, st, _ = dispatch(svc, "tuned", r, coo, want)
+        kinds.append(st.kind)
+        del want
+    if kinds[0] != "cold" or kinds[-1] != "exact":
+        raise AssertionError(f"serve tiers {kinds}: the first request must "
+                             f"be cold and the last (a repeat) exact")
+    hot = time_ms(lambda: svc.dispatch(coos[0], x))
+    log(f"serve hot: {hot!r} ms a dispatch (exact hit; median of 10 after "
+        f"2 warm-ups, the CSF build and upload included)")
+    profile_path("serve hot", lambda: svc.dispatch(coos[0], x), hot, {})
+    levels = build_csf(coos[0]).nnz_levels()
+    forced = dataclasses.replace(svc.config, backends=("cuda",))
+    for label, tuner in (("budgeted", None), ("budgeted cuda", forced)):
+        bsvc = PlanService(cache_dir=cache_dir, tuner=tuner,
+                           memory_budget=SERVE_BUDGET)
+        # the first request, then its repeat: an exact hit, whose
+        # launches are the dispatch's alone (a cold one's hold the
+        # tuner's measurements too)
+        for r in (1, len(coos)):
+            p, st, counts = dispatch(bsvc, label, r, coos[r - 1], first)
+        decision = dataclasses.astuple(plan_decision(p, levels))
+        if decision != SERVE_DECISION:
+            raise AssertionError(f"{label}: sliced as {decision}, expected "
+                                 f"{SERVE_DECISION}")
+        chunks = next(iter(bsvc._chunk_executors.values()))
+        stems = [s for s, n in counts.items() if n]
+        if p.backend != "torch" and counts["product"] != p.slice_chunks:
+            raise AssertionError(f"{label}: {counts['product']} launches "
+                                 f"of K2 for {p.slice_chunks} chunks")
+        ms = time_ms(lambda: bsvc.dispatch(coos[0], x))
+        log(f"serve {label}: {ms!r} ms a dispatch (median of 10 after 2 "
+            f"warm-ups), backend {p.backend}, chunk widths "
+            f"{sorted(chunks)}, kernels {stems}")
+        profile_path(f"serve {label}", lambda: bsvc.dispatch(coos[0], x),
+                     ms, {})
+    del first, x
+
+
 def largest_buffer_bytes(spec, cand, levels, itemsize: int = 4) -> int:
     """The largest array one call of candidate ``cand`` makes, from the
     engines' rules: a term over a CSF prefix works on fiber rows (padded
@@ -1640,6 +1872,14 @@ def main(argv=None) -> int:
                 rg.name)
         del x11, a11, lru
     phase_done("7 LM kernels")
+
+    # -- 8. memory-budgeted sliced execution --------------------------- #
+    sliced_paths(specs, factors, arrays, levels, torch_out, drv)
+    phase_done("8 sliced execution")
+
+    # -- 9. the plan service: MoE dispatch at granite-moe-1b's widths -- #
+    serve_stream(moe, dev, args.seed, drv)
+    phase_done("9 plan service")
 
     missing = [s for s, n in drv.launches.items() if n == 0]
     if missing:

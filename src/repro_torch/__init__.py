@@ -44,6 +44,11 @@ _EXPORTS = {
     "reference_execute": "repro_torch.core.executor",
     "plan_to_json": "repro_torch.core.executor",
     "plan_from_json": "repro_torch.core.executor",
+    "plan_peak_bytes": "repro_torch.core.slicing",
+    "choose_slicing": "repro_torch.core.slicing",
+    "sliced_execute": "repro_torch.core.slicing",
+    "SliceDecision": "repro_torch.core.slicing",
+    "MemoryBudgetError": "repro_torch.core.slicing",
     "tune": "repro_torch.autotune.tuner",
     "TunerConfig": "repro_torch.autotune.tuner",
     "SearchStats": "repro_torch.autotune.tuner",
@@ -53,6 +58,7 @@ _EXPORTS = {
     "Diagnostic": "repro_torch.analysis",
     "PlanReport": "repro_torch.analysis",
     "PlanVerificationError": "repro_torch.analysis",
+    "PlanService": "repro_torch.serve.serve_step",
 }
 
 __all__ = sorted(_EXPORTS) + ["__version__"]

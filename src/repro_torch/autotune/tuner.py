@@ -164,8 +164,11 @@ def tune(spec: SpTTNSpec,
     on its device) or a host CSF tensor (uploaded to the CUDA card, as
     every entry point runs there unless asked for the CPU).  Pass the
     tensor: one synthesized at the spec's dimensions holds
-    ``synth_density`` of them all.  ``memory_budget`` needs
-    ``core/slicing.py``, which is not ported yet, and raises.
+    ``synth_density`` of them all.  ``memory_budget`` (bytes) stamps the
+    returned plan with the slicing decision of DESIGN.md §10 for the
+    operand's profile; the budget never enters the cache key and the
+    cache stores the unsliced winner, so budgeted and unbudgeted callers
+    share one entry.
 
     >>> from repro_torch.core import spec as S
     >>> from repro_torch.core.executor import CSFArrays
@@ -182,10 +185,6 @@ def tune(spec: SpTTNSpec,
     >>> tuned.backend
     'torch'
     """
-    if memory_budget is not None:
-        raise NotImplementedError(
-            "tune(memory_budget=...) needs core/slicing.py, which is not "
-            "ported yet (ROADMAP queue 1, item 5)")
     from repro_torch.core.executor import CSFArrays
     from repro_torch.core.planner import _resolve_tuner_alias
     config = _resolve_tuner_alias(tuner, config, "tune") or TunerConfig()
@@ -218,12 +217,20 @@ def tune(spec: SpTTNSpec,
                                   scheme=config.profile_bucket)
         stats.bucket_key = bkey
 
+    def _budgeted(p):
+        # the slice decision is derived per call from (plan, profile,
+        # budget) — never part of the cached schedule (DESIGN.md §10)
+        if memory_budget is None:
+            return p
+        from repro_torch.core.slicing import stamp_plan_slicing
+        return stamp_plan_slicing(p, levels, memory_budget)
+
     if cache is not None:
         hit = cache.get(key)         # exact-key fast path
         if hit is not None:
             stats.cache_hit = True
             stats.search_seconds = time.perf_counter() - t_start
-            return hit, stats
+            return _budgeted(hit), stats
         if bkey is not None:
             hit = cache.get(bkey)
             if hit is not None and _bucket_reuse_ok(hit, spec, levels,
@@ -231,7 +238,7 @@ def tune(spec: SpTTNSpec,
                 stats.cache_hit = True
                 stats.bucket_hit = True
                 stats.search_seconds = time.perf_counter() - t_start
-                return hit, stats
+                return _budgeted(hit), stats
 
     # --- model-side pruning ------------------------------------------- #
     # generate_candidates ranks by TreeCost.evaluate (the ground-truth
@@ -324,4 +331,4 @@ def tune(spec: SpTTNSpec,
                                       config.profile_bucket).items())}))
 
     stats.search_seconds = time.perf_counter() - t_start
-    return plan, stats
+    return _budgeted(plan), stats

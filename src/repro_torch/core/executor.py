@@ -399,13 +399,28 @@ class CSFArrays:
         return self.cache[key]
 
 
+def as_arrays(csf, device=None) -> CSFArrays:
+    """``csf`` as a :class:`CSFArrays`: a host CSF tensor is uploaded to
+    ``device`` (``None``: the CUDA card); an operand already on a device
+    is kept, and refused when ``device`` names another one."""
+    if not isinstance(csf, CSFArrays):
+        return CSFArrays.from_csf(csf, device)
+    want = None if device is None else torch.device(device)
+    if want is not None and (csf.device.type != want.type or (
+            want.index is not None and csf.device.index != want.index)):
+        raise ValueError(f"operand lives on {csf.device}, but "
+                         f"device={device!r} was asked for")
+    return csf
+
+
 def segment_sum(csf: CSFArrays, arr: torch.Tensor, lvl: int,
                 out_lvl: int) -> torch.Tensor:
     """Sorted segment sum of level-``lvl`` rows onto level ``out_lvl``
     (``out_lvl == 0`` sums every row into the single root row)."""
     nseg = csf.nfib[out_lvl] if out_lvl > 0 else 1
     rest = tuple(arr.shape[1:])
-    out = segment_combine(arr.reshape(arr.shape[0], -1).contiguous(),
+    width = int(np.prod(rest, dtype=np.int64))     # -1 is ambiguous at 0 rows
+    out = segment_combine(arr.reshape(arr.shape[0], width).contiguous(),
                           csf.segment_ptr(lvl, out_lvl), nseg)
     return out.reshape((nseg,) + rest)
 
@@ -747,8 +762,15 @@ def execute_plan(plan, csf, factors: Mapping, backend: str | None = None,
     ``None`` is the CUDA card, ``"cpu"`` the CPU), or a *sharded*
     operand: a list of per-shard CSF tensors in global coordinates, whose
     dense partial outputs are summed.  ``factors`` are numpy arrays or
-    tensors (one mapping, or one per shard).  ``memory_budget`` needs the
-    slicing module, which is not ported yet, and raises.
+    tensors (one mapping, or one per shard).
+
+    ``memory_budget`` (bytes) prices the plan's working set against the
+    operand's actual nnz profile and, when over budget, replays the same
+    schedule per chunk of one dense mode
+    (:func:`repro_torch.core.slicing.sliced_execute`, DESIGN.md §10).
+    With no explicit budget, a plan stamped ``slice_chunks > 1`` at
+    planning time replays sliced as stamped.  Both compose with sharded
+    operands: the budget applies within each shard.
 
     >>> import numpy as np
     >>> from repro_torch.core import spec as S
@@ -766,10 +788,6 @@ def execute_plan(plan, csf, factors: Mapping, backend: str | None = None,
     """
     resolved = backend or plan.backend
     _check_engine_kwargs(kwargs, resolved, "execute_plan")
-    if memory_budget is not None or getattr(plan, "slice_chunks", 1) > 1:
-        raise NotImplementedError(
-            "memory-budgeted (sliced) execution needs core/slicing.py, "
-            "which is not ported yet (ROADMAP queue 1, item 5)")
     # static pre-flight: every invariant an engine would trip over deep
     # inside a lowering is rejected here with a structured diagnostic
     from repro_torch.analysis import verify_plan
@@ -790,23 +808,34 @@ def execute_plan(plan, csf, factors: Mapping, backend: str | None = None,
         total = None
         for shard, f in zip(csf, per_shard):
             part = torch.as_tensor(execute_plan(
-                plan, shard, f, backend=backend, device=device, **kwargs))
+                plan, shard, f, backend=backend,
+                memory_budget=memory_budget, device=device, **kwargs))
             total = part if total is None else total + part
         return total
-    if resolved in CODEGEN_BACKENDS and getattr(plan, "fused", False):
-        # a fused-winner plan replays through the chain lowering it was
-        # tuned with
-        kwargs.setdefault("strategy", "fused")
-    if resolved in CODEGEN_BACKENDS and getattr(plan, "block", None):
-        kwargs.setdefault("block", plan.block)
-    if isinstance(csf, CSFArrays):
-        want = None if device is None else torch.device(device)
-        if want is not None and (csf.device.type != want.type or (
-                want.index is not None and csf.device.index != want.index)):
-            raise ValueError(f"operand lives on {csf.device}, but "
-                             f"device={device!r} was asked for")
-    elif resolved != "reference":
-        csf = CSFArrays.from_csf(csf, device)
-    ex = make_executor(plan.spec, plan.path, plan.order,
-                       backend=resolved, **kwargs)
+    if memory_budget is not None:
+        # price against the operand's true profile; slice only if needed
+        from repro_torch.core import slicing
+        plan = slicing.stamp_plan_slicing(plan, slicing.nnz_levels_of(csf),
+                                          memory_budget)
+    if getattr(plan, "slice_chunks", 1) > 1:
+        from repro_torch.core.slicing import sliced_execute
+        return sliced_execute(plan, csf, factors, backend=backend,
+                              device=device, **kwargs)
+    if isinstance(csf, CSFArrays) or resolved != "reference":
+        csf = as_arrays(csf, device)
+    ex = make_executor(plan.spec, plan.path, plan.order, backend=resolved,
+                       **plan_engine_kwargs(plan, resolved, kwargs))
     return ex(csf, factors)
+
+
+def plan_engine_kwargs(plan, backend: str, kwargs: Mapping = ()) -> dict:
+    """``kwargs`` plus the code-generator options ``plan`` won with on
+    ``backend``: a fused winner replays through the chain lowering it was
+    tuned with, and with the block size that won."""
+    kwargs = dict(kwargs)
+    if backend in CODEGEN_BACKENDS:
+        if getattr(plan, "fused", False):
+            kwargs.setdefault("strategy", "fused")
+        if getattr(plan, "block", None):
+            kwargs.setdefault("block", plan.block)
+    return kwargs

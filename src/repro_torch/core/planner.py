@@ -107,9 +107,11 @@ def plan(spec: SpTTNSpec,
     :class:`repro_torch.autotune.TunerConfig` (``config=`` is a
     deprecated alias).
 
-    ``memory_budget`` (sliced replay) needs ``core/slicing.py``, which is
-    not ported yet, and raises ``NotImplementedError`` rather than being
-    ignored.
+    ``memory_budget`` (bytes) stamps the returned plan with the slicing
+    decision that keeps each execution pass within budget
+    (``slice_mode``/``slice_chunks``, DESIGN.md §10); ``execute_plan``
+    then replays it sliced.  The budget never changes which schedule is
+    chosen or cached — only how the winner is replayed.
 
     >>> from repro_torch.core import spec as S
     >>> p = plan(S.mttkrp(8, 6, 5, 4))
@@ -123,10 +125,6 @@ def plan(spec: SpTTNSpec,
     2
     """
     tuner = _resolve_tuner_alias(tuner, config, "plan")
-    if memory_budget is not None:
-        raise NotImplementedError(
-            "plan(memory_budget=...) needs core/slicing.py, which is not "
-            "ported yet (ROADMAP queue 1, item 5)")
     if autotune:
         from repro_torch.autotune import TunerConfig, tune
         if tuner is None:
@@ -136,7 +134,7 @@ def plan(spec: SpTTNSpec,
                                 depth_slack=depth_slack)
         best, stats = tune(spec, cost=cost, nnz_levels=nnz_levels, csf=csf,
                            factors=factors, cache_dir=cache_dir,
-                           tuner=tuner)
+                           tuner=tuner, memory_budget=memory_budget)
         best.stats = stats
         return best
     cost = cost or ConstrainedBlas(bound=2)
@@ -179,6 +177,9 @@ def plan(spec: SpTTNSpec,
         best = search(MaxBufferSize(), max_paths)
     if best is None:
         raise ValueError(f"no feasible loop nest found for {spec}")
+    if memory_budget is not None:
+        from repro_torch.core.slicing import stamp_plan_slicing
+        best = stamp_plan_slicing(best, nnz_levels, memory_budget)
     return best
 
 
@@ -197,3 +198,29 @@ def cached_plan(expr: str, dims: Mapping[str, int], sparse: int | None = 0,
     """LRU-cached planning keyed by the kernel signature (pattern-static)."""
     return _cached_plan_key(expr, tuple(sorted(dims.items())), sparse,
                             tuple(sorted((nnz_levels or {}).items())), bound)
+
+
+def autotune(spec: SpTTNSpec, csf, factors,
+             candidates: Sequence[tuple[ContractionPath, LoopOrder]],
+             repeats: int = 3):
+    """Measurement-driven selection among explicit (path, order) pairs
+    (§4's 'enumeration enables autotuning').  Thin wrapper over
+    :mod:`repro_torch.autotune` for callers that bring their own
+    candidate list; ``csf`` is a :class:`~repro_torch.core.executor.
+    CSFArrays` (measured on its device) or a host CSF tensor (uploaded
+    to the CUDA card).  Returns (best_candidate, [(seconds, path, order),
+    ...] ascending).
+    """
+    from repro_torch.autotune.candidates import Candidate
+    from repro_torch.autotune.measure import MeasureConfig, measure_candidates
+    from repro_torch.core.executor import as_arrays
+
+    arrays = as_arrays(csf)
+    cands = [Candidate(path=p, order=o, cost=0.0, flops=0.0)
+             for p, o in candidates]
+    ms = measure_candidates(
+        spec, cands, arrays, factors,
+        config=MeasureConfig(warmup=1, repeats=repeats, prune_ratio=0.0))
+    results = [(m.seconds, m.candidate.path, m.candidate.order) for m in ms]
+    _, path, order = results[0]
+    return (path, order), results

@@ -37,6 +37,7 @@ boundary: one bf16 ulp is at most 2**-7 of the value; K9's plain
 version rounds ``p`` after another running maximum).
 """
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -419,6 +420,77 @@ def test_engines_on_the_card_match_algorithm2(cuda, backend, spec):
         assert counts["reduce"] + counts["product"] > 0
     if backend == "cuda-splitk" and not spec.output_is_sparse:
         assert counts["splitk"] > 0 and counts["combine"] > 0
+
+
+# --------------------------------------------------------------------- #
+# Sliced replay and the plan service on the card
+# --------------------------------------------------------------------- #
+@pytest.mark.parametrize("backend", ["cuda", "cuda-splitk"])
+@pytest.mark.parametrize("spec,mode,chunks", [
+    (S.mttkrp(30, 20, 25, 22), "a", 2),     # 11 wide: off 4
+    (S.tttp3(30, 20, 25, 21), "r", 3),      # 7 wide, contracted
+], ids=["mttkrp", "tttp3"])
+def test_sliced_replay_matches_unsliced_on_the_card(cuda, backend, spec,
+                                                    mode, chunks):
+    from repro_torch.core.slicing import sliced_execute
+    csf = build_csf(random_sparse((30, 20, 25), 0.05, seed=3,
+                                  distribution="frostt"))
+    rng = np.random.default_rng(2)
+    factors = {t.name: torch.from_numpy(rng.standard_normal(
+        [spec.dims[i] for i in t.indices]).astype(np.float32)).to(cuda)
+        for t in spec.inputs if not t.is_sparse}
+    p = dataclasses.replace(plan(spec, nnz_levels=csf.nnz_levels()),
+                            backend=backend, block=8)
+    arrays = CSFArrays.from_csf(csf)
+    native.reset_launch_counts()
+    want = execute_plan(p, arrays, factors)
+    torch.cuda.synchronize()
+    once = native.launch_counts()
+    native.reset_launch_counts()
+    cache = {}
+    got = sliced_execute(p, arrays, factors, mode=mode, chunks=chunks,
+                         executor_cache=cache)
+    torch.cuda.synchronize()
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    _close(got, want, torch.float32)
+    counts = native.launch_counts()
+    assert once["reduce"] + once["product"] + once["splitk"] > 0
+    assert {k: chunks * n for k, n in once.items()} == counts
+    D = spec.dims[mode]
+    w = -(-D // chunks)
+    assert sorted(cache) == sorted({min(w, D - s) for s in range(0, D, w)})
+    stamped = dataclasses.replace(p, slice_mode=mode, slice_chunks=chunks)
+    assert torch.equal(execute_plan(stamped, arrays, factors), got)
+
+
+def test_budgeted_plan_service_dispatch_on_the_card(cuda, tmp_path):
+    from repro_torch.autotune import TunerConfig
+    from repro_torch.serve import PlanService, moe_routing_coo
+    N, E, K, C, D = 256, 8, 2, 64, 90
+    r = np.random.default_rng(5)
+    idx = np.argsort(-r.standard_normal((N, E)), axis=1)[:, :K]
+    coo = moe_routing_coo(idx, E, C)
+    x = torch.from_numpy(r.standard_normal((N, D)).astype(
+        np.float32)).to(cuda)
+    svc = PlanService(cache_dir=str(tmp_path), memory_budget=100_000,
+                      tuner=TunerConfig(profile_bucket="log2",
+                                        backends=("cuda",), warmup=0,
+                                        repeats=1, max_candidates=1))
+    out, st = svc.dispatch(coo, x)          # tunes, then dispatches
+    assert st.kind == "cold"
+    native.reset_launch_counts()
+    out, st = svc.dispatch(coo, x)
+    torch.cuda.synchronize()
+    assert st.kind == "exact" and out.device.type == "cuda"
+    plan_json, widths = next(iter(svc._chunk_executors.items()))
+    chunks = json.loads(plan_json)["slice_chunks"]
+    assert json.loads(plan_json)["slice_mode"] == "d" and chunks > 1
+    assert native.launch_counts()["product"] == chunks
+    t, e, c = (torch.from_numpy(coo.coords[:, m].astype(np.int64)).to(cuda)
+               for m in range(3))
+    want = torch.zeros((E, C, D), device=cuda)
+    want[e, c] = x[t]
+    assert torch.equal(out, want)           # copies: the same bits
 
 
 # --------------------------------------------------------------------- #

@@ -5,9 +5,9 @@
   a fresh interpreter that plans and runs a kernel on the CPU;
 * on CPU tensors no kernel launches (every launch count stays 0), and a
   CUDA-less host never falls back to the CPU unless asked;
-* what the port has not ported yet (sliced execution under a memory
-  budget) raises ``NotImplementedError`` instead of quietly running
-  something else.
+* what the port once left out and raised ``NotImplementedError`` for
+  (sliced execution under a memory budget, the fused chain, measured
+  planning) now runs, and the sliced calls agree with the reference.
 """
 import ast
 import ctypes
@@ -27,6 +27,7 @@ from repro_torch.core.executor import (CSFArrays, execute_plan,  # noqa: E402
                                        make_executor)
 from repro_torch.core.planner import plan  # noqa: E402
 from repro_torch.autotune import TunerConfig, tune  # noqa: E402
+from repro_torch.core import slicing  # noqa: E402
 from repro_torch.kernels import native, ops  # noqa: E402
 from repro_torch.kernels.segment import segment_combine  # noqa: E402
 from repro_torch.sparse import build_csf, random_sparse  # noqa: E402
@@ -42,6 +43,14 @@ def _mttkrp():
     factors = {"B": rng.standard_normal((6, 4)).astype(np.float32),
                "C": rng.standard_normal((5, 4)).astype(np.float32)}
     return spec, csf, factors, plan(spec, nnz_levels=csf.nnz_levels())
+
+
+def _reference_csf(csf):
+    """The JAX package's CSF of the same tensor."""
+    from repro.sparse import build_csf as j_build_csf
+    from repro.sparse.coo import from_coords as j_from_coords
+    return j_build_csf(j_from_coords(csf.coo.coords, csf.coo.values,
+                                     csf.coo.shape))
 
 
 def _port_sources():
@@ -83,6 +92,15 @@ p = plan(spec, nnz_levels=csf.nnz_levels())
 for backend in ("torch", "cuda", "cuda-splitk"):
     out = execute_plan(p, csf, f, backend=backend, device="cpu")
     assert tuple(out.shape) == (8, 4)
+    out = execute_plan(p, csf, f, backend=backend, device="cpu",
+                       memory_budget=600)
+    assert tuple(out.shape) == (8, 4)
+from repro_torch.serve import PlanService, moe_routing_coo
+idx = np.argsort(-rng.standard_normal((16, 4)), axis=1)[:, :2]
+svc = PlanService(device="cpu", memory_budget=1024)
+out, st = svc.dispatch(moe_routing_coo(idx, 4, 8),
+                       rng.standard_normal((16, 8)).astype(np.float32))
+assert tuple(out.shape) == (4, 8, 8) and st.kind == "cold"
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
@@ -135,19 +153,44 @@ def test_no_cuda_means_an_error_not_the_cpu(monkeypatch):
 
 
 def test_unported_parts_raise_not_implemented():
+    """Nothing of the port raises ``NotImplementedError`` any more: a
+    memory budget slices (the JAX package's decision and result) in
+    ``execute_plan``, ``plan``, ``plan(autotune=True)`` and ``tune``, and
+    a plan stamped sliced replays sliced."""
+    from repro.core import executor as jex
+    from repro.core import planner as jplanner
+    from repro.core import slicing as jslicing
+    from repro.core import spec as JS
     spec, csf, factors, p = _mttkrp()
     arrays = CSFArrays.from_csf(csf, device="cpu")
-    sliced = dataclasses.replace(p, slice_mode="i", slice_chunks=2)
-    with pytest.raises(NotImplementedError, match="slicing"):
-        execute_plan(p, csf, factors, device="cpu", memory_budget=1 << 20)
-    with pytest.raises(NotImplementedError, match="slicing"):
-        execute_plan(sliced, arrays, factors)
-    with pytest.raises(NotImplementedError, match="slicing"):
-        plan(spec, memory_budget=1 << 20)
-    with pytest.raises(NotImplementedError, match="slicing"):
-        plan(spec, autotune=True, csf=arrays, memory_budget=1 << 20)
-    with pytest.raises(NotImplementedError, match="slicing"):
-        tune(spec, csf=arrays, memory_budget=1 << 20)
+    levels = csf.nnz_levels()
+    budget = slicing.plan_peak_bytes(spec, p.path, p.order, levels) // 2
+    jp = jplanner.plan(JS.mttkrp(8, 6, 5, 4), nnz_levels=levels)
+    jarrays = jex.CSFArrays.from_csf(_reference_csf(csf))
+    want = np.asarray(jex.execute_plan(jp, jarrays, factors,
+                                       memory_budget=budget))
+    got = execute_plan(p, csf, factors, device="cpu", memory_budget=budget)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+    sliced = dataclasses.replace(p, slice_mode="a", slice_chunks=2)
+    jsliced = dataclasses.replace(jp, slice_mode="a", slice_chunks=2)
+    np.testing.assert_allclose(
+        execute_plan(sliced, arrays, factors).numpy(),
+        np.asarray(jex.execute_plan(jsliced, jarrays, factors)), atol=1e-5)
+    stamped = plan(spec, nnz_levels=levels, memory_budget=budget)
+    jstamped = jplanner.plan(JS.mttkrp(8, 6, 5, 4), nnz_levels=levels,
+                             memory_budget=budget)
+    assert (stamped.slice_mode, stamped.slice_chunks) == \
+        (jstamped.slice_mode, jstamped.slice_chunks)
+    assert stamped.slice_mode == "a" and stamped.slice_chunks > 1
+    assert dataclasses.astuple(jslicing.plan_decision(jstamped, levels)) \
+        == dataclasses.astuple(slicing.plan_decision(stamped, levels))
+    fast = TunerConfig(max_candidates=1, repeats=1)
+    tuned = plan(spec, autotune=True, csf=arrays, tuner=fast,
+                 memory_budget=budget)
+    assert tuned.slice_chunks == stamped.slice_chunks
+    assert tuned.stats.candidates_timed >= 1
+    tuned, _ = tune(spec, csf=arrays, tuner=fast, memory_budget=budget)
+    assert tuned.slice_chunks == stamped.slice_chunks
     # what this port once left out now runs: the fused chain on both
     # code-generator engines, and measured planning
     for backend in ("cuda", "cuda-splitk"):

@@ -228,14 +228,39 @@ def test_verify_plan_gives_the_same_codes(spec_name, args, how):
 
 
 def test_unported_planner_hooks_raise(monkeypatch):
-    """Sliced planning is not ported and raises; measured planning is,
-    and without a card it refuses to fall back to the CPU unless given
-    an operand there."""
-    spec = TS.mttkrp(6, 7, 8, 4)
-    with pytest.raises(NotImplementedError, match="slicing"):
-        tplanner.plan(spec, memory_budget=1 << 20)
-    with pytest.raises(NotImplementedError, match="slicing"):
-        tplanner.plan(spec, autotune=True, memory_budget=1 << 20)
+    """The planner hooks once left out now run: ``plan(memory_budget=)``
+    stamps the reference's slice decision, on the model's plan and on a
+    measured one.  Measured planning without a card refuses to fall back
+    to the CPU unless given an operand there."""
+    from repro.core.slicing import plan_peak_bytes
+    from repro_torch.autotune import TunerConfig
+    spec, jspec = TS.mttkrp(6, 7, 8, 4), JS.mttkrp(6, 7, 8, 4)
+    jp = jplanner.plan(jspec)
+    peak = plan_peak_bytes(jspec, jp.path, jp.order)
+    for budget in (1 << 20, peak * 4 // 5, peak * 7 // 10):
+        tp = tplanner.plan(spec, memory_budget=budget)
+        jp = jplanner.plan(jspec, memory_budget=budget)
+        assert (tp.slice_mode, tp.slice_chunks) == (jp.slice_mode,
+                                                    jp.slice_chunks)
+    assert tp.slice_mode == "a" and tp.slice_chunks > 1
+    with pytest.raises(ValueError, match="shard") as jerr:
+        jplanner.plan(jspec, memory_budget=peak // 2)
+    with pytest.raises(ValueError, match="shard") as terr:
+        tplanner.plan(spec, memory_budget=peak // 2)
+    assert type(terr.value).__name__ == type(jerr.value).__name__
+    jc, tc = _tensor_pair(jspec, spec, 0.3)
+    jp = jplanner.plan(jspec, nnz_levels=jc.nnz_levels())
+    budget = plan_peak_bytes(jspec, jp.path, jp.order,
+                             jc.nnz_levels()) * 3 // 5
+    want = tex.plan_from_json(jex.plan_to_json(jplanner.plan(
+        jspec, nnz_levels=jc.nnz_levels(), memory_budget=budget)))
+    tuned = tplanner.plan(spec, autotune=True, memory_budget=budget,
+                          csf=tex.CSFArrays.from_csf(tc, "cpu"),
+                          tuner=TunerConfig(max_candidates=1, repeats=1))
+    assert (tuned.path, tuned.order) == (want.path, want.order)
+    assert (tuned.slice_mode, tuned.slice_chunks) == (want.slice_mode,
+                                                      want.slice_chunks)
+    assert want.slice_chunks > 1
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tplanner.plan(spec, autotune=True)
