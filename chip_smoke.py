@@ -82,6 +82,27 @@ any failure exits non-zero):
    and trace each sliced path and the hot and budgeted dispatches
    (``PROFILE`` lines); their kernels are not measured alone again (they
    are the stage kernels phases 3-5 measure, at other widths).
+10. Distributed SpTTN (``repro_torch.distributed``) at nell-2's shape:
+   the COO and factors written to a directory under ``_build/``, the
+   single-device outputs and ms taken first, then four ranks spawned
+   (gloo, a ``file://`` store, all on cuda:0: NCCL refuses two ranks on
+   one GPU) that memory-map the COO and call the entry points as a user
+   does: (a) ``make_distributed`` MTTKRP on ``(4,)``, (b)
+   ``make_distributed_cuda`` MTTKRP on ``(2, 2)`` (modes i and j: an
+   ``all_reduce`` over ``model``), (c) ``make_distributed_tuned`` TTMc3
+   on ``(4,)`` over the ``torch``, ``cuda`` and ``cuda-splitk`` engines,
+   (d) ``compressed_psum`` of 64 MB against the exact ``all_reduce``
+   (within one scale unit of every rank's block) and
+   ``reduce_scatter_grads``; then (e) ``make_distributed_cuda`` on a
+   one-rank NCCL mesh in this process, mode i and mode j.  Every output
+   (after ``undo_cyclic`` and the trim) is held to the single-device
+   one, every rank's counted run must launch its engine's kernels, and
+   a ``DIST`` line per case gives the mesh, nonzeros per shard (and
+   the block partition's), seconds to partition and build, the call's
+   ms (CUDA events between barriers, median of 10) beside the single
+   device's, the engine's ms with no collective (all ranks at once, and
+   each alone), each rank's peak and launches.  A rank that fails or
+   hangs (300 s collective timeout) fails the run.
 
 Every path of phases 2-7 is timed (CUDA events, median of 10 after 2 warm-ups) and its
 peak memory read.  Then one counted run, with the launch counts zeroed
@@ -163,6 +184,18 @@ SLICED_CASES = (("MTTKRP", 2**30, ("a", 2, "output", 1_263_228_160,
 SERVE_REQUESTS = 8
 SERVE_BUDGET = 256 * 2**20
 SERVE_DECISION = ("d", 3, "output", 553_779_200, 185_040_896)
+# phase 10: the ranks that share the card through gloo (NCCL refuses
+# two ranks on one GPU), the seconds after which a rank's collective
+# fails, the compressed all-reduce's size, and the runs: (case, spec,
+# mesh shape, mesh axes, mode -> axis, entry point)
+DIST_RANKS = 4
+DIST_TIMEOUT_S = 300
+DIST_PSUM_BYTES = 64 * 2**20
+DIST_CASES = (
+    ("a", "MTTKRP", (4,), ("data",), {0: "data"}, "make_distributed"),
+    ("b", "MTTKRP", (2, 2), ("data", "model"), {0: "data", 1: "model"},
+     "make_distributed_cuda"),
+    ("c", "TTMc3", (4,), ("data",), {0: "data"}, "make_distributed_tuned"))
 # kernel stem -> its name in a profiler trace
 TRACE_NAMES = {stem: f"spttn::{stem}_kernel<" for stem in (
     "reduce", "product", "splitk", "combine", "chain", "mttkrp", "ttmc",
@@ -1400,6 +1433,389 @@ def serve_stream(moe, dev, seed: int, drv) -> None:
     del first, x
 
 
+def engine_kernels(backend: str, fused: bool = False) -> tuple:
+    """The kernels a plan on ``backend`` launches (a tuple inside: any
+    one of its stems): the ``torch`` engine's segment sums run K4c."""
+    return {"torch": ("combine",),
+            "cuda": (("chain", "combine") if fused
+                     else (("reduce", "product"),)),
+            "cuda-splitk": ("splitk", "combine")}[backend]
+
+
+def kept_schedules(spec, levels, blocks, fit_bytes: int):
+    """The candidates ``tune`` ranks on every engine at ``blocks``, the
+    largest buffer of each, the schedules in rank order, and the length
+    of the longest head of schedules whose every candidate's largest
+    buffer stays under ``fit_bytes`` (``max_candidates`` for a search
+    that fits)."""
+    from repro_torch.autotune import generate_candidates
+    full = generate_candidates(spec, nnz_levels=levels, blocks=blocks,
+                               backends=("torch", "cuda", "cuda-splitk"))
+    sizes = {c.key: largest_buffer_bytes(spec, c, levels) for c in full}
+    schedules: list = []
+    for c in full:
+        if (c.path, c.order) not in schedules:
+            schedules.append((c.path, c.order))
+    keep = 0
+    for m in range(1, len(schedules) + 1):
+        if all(sizes[c.key] <= fit_bytes for c in full
+               if (c.path, c.order) in schedules[:m]):
+            keep = m
+        else:
+            break
+    return full, sizes, schedules, keep
+
+
+def dist_time_ms(call, reps: int = 10, warmup: int = 2) -> float:
+    """Median CUDA-event time in ms of one distributed call, every rank
+    meeting at a barrier before and after each timed call."""
+    import torch
+    import torch.distributed as dist
+    for _ in range(warmup):
+        call()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        dist.barrier()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        call()
+        end.record()
+        end.synchronize()
+        dist.barrier()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def dist_rank(rank: int, world: int, work: str) -> None:
+    """Phase 10, one rank of ``world`` on the card (gloo): the nell-2 COO
+    memory-mapped from ``work``, each of ``DIST_CASES`` through the
+    port's entry point as a user calls it (its output, after
+    ``undo_cyclic`` and the trim, held to the single-device output), then
+    ``compressed_psum`` and ``reduce_scatter_grads`` against the exact
+    collectives.  What it measured goes to ``work/rank<r>.json``."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    sys.path.insert(0, os.path.join(REPO, "src"))
+    from repro_torch import distributed as D
+    from repro_torch.autotune import TunerConfig
+    from repro_torch.core import spec as S
+    from repro_torch.core.planner import plan
+    from repro_torch.distributed.collectives import (compressed_psum,
+                                                     reduce_scatter_grads)
+    from repro_torch.distributed.spttn_dist import (partition_mesh,
+                                                    partition_nonzeros,
+                                                    rank_shard, undo_cyclic)
+    from repro_torch.kernels import native
+    from repro_torch.sparse import COOTensor
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(os.path.join(work, "meta.json")) as fh:
+        meta = json.load(fh)
+    dist.init_process_group(
+        "gloo", init_method="file://" + os.path.join(work, "store"),
+        world_size=world, rank=rank,
+        timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    try:
+        native.load_library()          # the parent built it: loaded only
+        coo = COOTensor(
+            coords=np.load(os.path.join(work, "coords.npy"), mmap_mode="r"),
+            values=np.load(os.path.join(work, "values.npy"), mmap_mode="r"),
+            shape=tuple(meta["shape"]))
+        levels = {int(k): v for k, v in meta["levels"].items()}
+        I, J, K = coo.shape
+        specs = {"MTTKRP": S.mttkrp(I, J, K, 64),
+                 "TTMc3": S.ttmc3(I, J, K, 16, 16)}
+        meshes: dict = {}
+        out = []
+        for case, name, shape, axes, mode_axis, entry in DIST_CASES:
+            spec = specs[name]
+            f = {k: torch.from_numpy(np.load(os.path.join(
+                work, f"{name}.{k}.npy"))).cuda()
+                for k in meta["factors"][name]}
+            want = torch.from_numpy(np.load(os.path.join(work,
+                                                         f"{name}.want.npy")))
+            if shape not in meshes:
+                meshes[shape] = init_device_mesh("cuda", shape,
+                                                 mesh_dim_names=axes)
+            mesh = meshes[shape]
+            rec = {"case": case, "spec": name, "entry": entry,
+                   "mesh": list(shape), "axes": list(axes),
+                   "mode_axis": {str(m): a for m, a in mode_axis.items()},
+                   "backend": dist.get_backend()}
+            if case == "a":
+                t0 = time.perf_counter()
+                partition_mesh(spec, coo, mesh, mode_axis)
+                rec["partition_mesh_s"] = time.perf_counter() - t0
+                rec["nnz_per_shard_blocks"] = [
+                    c.nnz for c in partition_nonzeros(coo, {0: world},
+                                                      cyclic=False)]
+            t0 = time.perf_counter()
+            if entry == "make_distributed_tuned":
+                cfg = TunerConfig(backends=("torch", "cuda", "cuda-splitk"),
+                                  blocks=(8,),
+                                  max_candidates=meta["tune_keep"][name])
+                d = D.make_distributed_tuned(
+                    spec, coo, mesh, mode_axis, tuner=cfg,
+                    cache_dir=os.path.join(work, "plans"))
+                rec["mode"] = d.mode
+                rec["winners"] = [None if sh.plan is None else {
+                    "shard": sh.index, "backend": sh.plan.backend,
+                    "fused": sh.plan.fused, "block": sh.plan.block,
+                    "path": [str(t) for t in sh.plan.path],
+                    "cache_hit": sh.stats.cache_hit,
+                    "search_s": sh.stats.search_seconds}
+                    for sh in d.shards]
+                # the harmonized plan of a collective mode, else this
+                # rank's shard's own (none for an empty shard)
+                ran = (d.collective.plan if d.collective is not None else
+                       d.shards[rank_shard(mesh, tuple(axes))[0]].plan)
+                expect = (engine_kernels(ran.backend, ran.fused)
+                          if ran is not None else ())
+
+                def call(d=d, f=f):
+                    return d(f)
+            else:
+                p = plan(spec, nnz_levels=levels)
+                d = getattr(D, entry)(spec, p, coo, mesh, mode_axis)
+                expect = engine_kernels("torch" if entry == "make_distributed"
+                                        else "cuda", p.fused)
+
+                def call(d=d, f=f, spec=spec, mode_axis=mode_axis,
+                         mesh=mesh):
+                    return undo_cyclic(d(f), spec, mode_axis, mesh,
+                                       coo.shape)[:I]
+            rec["build_s"] = time.perf_counter() - t0
+            rec["nnz_per_shard"] = list(d.nnz_per_shard)
+            torch.cuda.synchronize()
+            dist.barrier()
+            torch.cuda.reset_peak_memory_stats()
+            native.reset_launch_counts()
+            got = call()
+            torch.cuda.synchronize()
+            counts = native.launch_counts()
+            rec["peak_GiB"] = torch.cuda.max_memory_allocated() / 2**30
+            rec["launches"] = {k: n for k, n in counts.items() if n}
+            missing = [s for s in expect if not any(
+                counts[x] for x in (s if isinstance(s, tuple) else (s,)))]
+            if missing:
+                raise AssertionError(f"rank {rank} case {case}: kernels "
+                                     f"{missing} were not launched")
+            rec["max_abs_err"] = check(
+                f"dist {case} {name} rank {rank} vs one device", got, want)
+            del got
+            rec["ms"] = dist_time_ms(call)
+            # where a call's time goes: the rank's engine on its padded
+            # shard with no collective, all ranks at once, and each rank
+            # alone while the others wait
+            eng = getattr(d, "collective", None) or d
+            if hasattr(eng, "executor"):
+                fl = eng._prepare(f)
+
+                def local(eng=eng, fl=fl):
+                    return eng.executor(eng.arrays, fl)
+
+                rec["local_ms"] = dist_time_ms(local)
+                for r in range(world):
+                    solo = dist_time_ms(local if r == rank else lambda: None)
+                    if r == rank:
+                        rec["solo_ms"] = solo
+                del fl, local
+            out.append(rec)
+            del d, call
+            torch.cuda.empty_cache()
+
+        # (d) the int8 all-reduce against the exact one, within one scale
+        # unit of every rank's block; the ZeRO-2 gradient slices
+        n = DIST_PSUM_BYTES // 4
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(1000 + rank)
+        x = torch.randn(n, generator=gen, device="cuda")
+        exact = x.clone()
+        dist.all_reduce(exact)
+        qgen = torch.Generator(device="cuda")
+        qgen.manual_seed(2000 + rank)
+        got = compressed_psum(x, None, qgen)
+        unit = x.reshape(-1, 256).abs().amax(1).div(127.0).clamp_min(1e-12)
+        dist.all_reduce(unit)
+        bound = unit.repeat_interleave(256) * (1 + 1e-5) + 1e-6 * exact.abs()
+        diff = got - exact
+        rec = {"case": "d", "entry": "compressed_psum", "bytes": n * 4,
+               "backend": dist.get_backend(),
+               "worst_err/bound": float((diff.abs() / bound).max()),
+               "mean_err": float(diff.mean()),
+               "mean_bound": float(unit.mean()),
+               "ms": dist_time_ms(lambda: compressed_psum(x, None, qgen)),
+               "all_reduce_ms": dist_time_ms(
+                   lambda: dist.all_reduce(x.clone()))}
+        if rec["worst_err/bound"] > 1.0:
+            raise AssertionError(f"rank {rank}: compressed_psum off by "
+                                 f"{rec['worst_err/bound']} of its bound")
+        grads = {"w": torch.randn((4096, 1024), generator=gen,
+                                  device="cuda"),
+                 "b": torch.randn(1023, generator=gen, device="cuda")}
+        try:
+            sliced = reduce_scatter_grads(grads)
+            rec["reduce_scatter"] = "cuda tensors"
+        except RuntimeError as e:      # gloo: staged through host memory
+            rec["reduce_scatter"] = f"host-staged ({str(e)[:160]})"
+            sliced = {k: v.cuda() for k, v in reduce_scatter_grads(
+                {k: v.cpu() for k, v in grads.items()}).items()}
+        for k, g in grads.items():
+            full = g.clone()
+            dist.all_reduce(full)
+            if k == "w":
+                full = full.chunk(world)[rank]
+            check(f"dist d reduce_scatter_grads {k} rank {rank}", sliced[k],
+                  full)
+        out.append(rec)
+        with open(os.path.join(work, f"rank{rank}.json"), "w") as fh:
+            json.dump(out, fh)
+    finally:
+        dist.destroy_process_group()
+
+
+def distributed_paths(coo, specs, factors, arrays, levels, torch_out, drv,
+                      tune_keep) -> None:
+    """Phase 10: ``DIST_RANKS`` gloo ranks on the card drive
+    ``DIST_CASES`` and the compressed all-reduce (``dist_rank``), each
+    output held to the single-device one computed here first; then one
+    NCCL rank runs (b)'s plan.  A ``DIST`` line per case gives the mesh,
+    nonzeros per shard, seconds to build, ms beside the single device's,
+    each rank's peak and launches."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core.executor import execute_plan
+    from repro_torch.core.planner import plan
+    from repro_torch.distributed import make_distributed_cuda
+    from repro_torch.distributed.spttn_dist import undo_cyclic
+    from repro_torch.kernels import native
+    os.makedirs(native.BUILD_DIR, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="dist-", dir=native.BUILD_DIR)
+    np.save(os.path.join(work, "coords.npy"), coo.coords)
+    np.save(os.path.join(work, "values.npy"), coo.values)
+    single = {}
+    for name in ("MTTKRP", "TTMc3"):
+        for k, t in factors[name].items():
+            np.save(os.path.join(work, f"{name}.{k}.npy"), t.cpu().numpy())
+        np.save(os.path.join(work, f"{name}.want.npy"),
+                torch_out[name].cpu().numpy())
+        p = plan(specs[name], nnz_levels=levels)
+        for backend in ("torch", "cuda"):
+            single[f"{name} {backend}"] = time_ms(
+                lambda p=p, b=backend, f=factors[name]: execute_plan(
+                    p, arrays, f, backend=b))
+    with open(os.path.join(work, "meta.json"), "w") as fh:
+        json.dump({"shape": list(coo.shape),
+                   "levels": {str(k): int(v) for k, v in levels.items()},
+                   "factors": {n: sorted(factors[n]) for n in factors},
+                   "tune_keep": tune_keep}, fh)
+    log(f"DIST single-device ms {json.dumps(single)}; tune max_candidates "
+        f"{tune_keep}")
+    torch.cuda.empty_cache()
+    # every rank on the one card: NCCL refuses two ranks on one GPU
+    # ("Duplicate GPU detected"), gloo moves CUDA tensors through host
+    # memory; the kernels still run on the card
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    log(f"DIST spawning {DIST_RANKS} ranks, backend gloo, all on cuda:0 "
+        f"(NCCL refuses two ranks on one GPU)")
+    ctx = mp.start_processes(dist_rank, args=(DIST_RANKS, work),
+                             nprocs=DIST_RANKS, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + 2 * DIST_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                raise AssertionError("phase 10: a rank did not finish")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+    ranks = []
+    for r in range(DIST_RANKS):
+        with open(os.path.join(work, f"rank{r}.json")) as fh:
+            ranks.append(json.load(fh))
+    for i, rec in enumerate(ranks[0]):
+        per = [rk[i] for rk in ranks]
+        line = {k: v for k, v in rec.items()
+                if k not in ("ms", "local_ms", "solo_ms", "peak_GiB",
+                             "launches", "build_s", "max_abs_err",
+                             "partition_mesh_s", "all_reduce_ms")}
+        line["ranks"] = DIST_RANKS
+        for key in ("ms", "local_ms", "solo_ms", "build_s",
+                    "partition_mesh_s", "peak_GiB", "launches",
+                    "max_abs_err", "all_reduce_ms"):
+            if key in rec:
+                line[key] = [r[key] for r in per]
+        if "nnz_per_shard" in rec:
+            line["nnz_min"] = min(rec["nnz_per_shard"])
+            line["nnz_max"] = max(rec["nnz_per_shard"])
+        if rec.get("spec"):
+            engine = "cuda" if rec["entry"] == "make_distributed_cuda" \
+                else "torch"
+            line["single_device_ms"] = single[f"{rec['spec']} {engine}"]
+        for r in per:
+            for stem, n in r.get("launches", {}).items():
+                drv.launches[stem] += n
+        log("DIST " + json.dumps(line))
+
+    # (e) one NCCL rank running (b)'s plan: its all_reduce (mode j
+    # partitioned) and its all_gather (mode i) go through NCCL
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group(
+        "nccl", init_method="file://" + os.path.join(work, "nccl-store"),
+        world_size=1, rank=0,
+        timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+        spec, f = specs["MTTKRP"], factors["MTTKRP"]
+        p = plan(spec, nnz_levels=levels)
+        for mode_axis in ({0: "data"}, {1: "data"}):
+            t0 = time.perf_counter()
+            d = make_distributed_cuda(spec, p, coo, mesh, mode_axis)
+            build_s = time.perf_counter() - t0
+
+            def run(d=d, mode_axis=mode_axis):
+                return undo_cyclic(d(f), spec, mode_axis, mesh,
+                                   coo.shape)[:coo.shape[0]]
+
+            peak, counts = peak_and_launches(run, (
+                f"dist e nccl {mode_axis} vs one device",
+                torch_out["MTTKRP"]))
+            missing = [s for s in engine_kernels("cuda", p.fused) if not any(
+                counts[x] for x in (s if isinstance(s, tuple) else (s,)))]
+            if missing:
+                raise AssertionError(f"(e): kernels {missing} were not "
+                                     f"launched")
+            for stem, n in counts.items():
+                drv.launches[stem] += n
+            log("DIST " + json.dumps({
+                "case": "e", "spec": "MTTKRP", "entry":
+                "make_distributed_cuda", "mesh": [1], "axes": ["data"],
+                "mode_axis": {str(m): a for m, a in mode_axis.items()},
+                "backend": dist.get_backend(), "ranks": 1,
+                "build_s": build_s, "ms": time_ms(run),
+                "single_device_ms": single["MTTKRP cuda"],
+                "peak_GiB": peak / 2**30,
+                "launches": {k: n for k, n in counts.items() if n}}))
+            del d
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+
 def largest_buffer_bytes(spec, cand, levels, itemsize: int = 4) -> int:
     """The largest array one call of candidate ``cand`` makes, from the
     engines' rules: a term over a CSF prefix works on fiber rows (padded
@@ -1461,7 +1877,7 @@ def main(argv=None) -> int:
     import torch.nn.functional as F
     sys.path.insert(0, os.path.join(REPO, "src"))
     try:
-        from repro_torch.autotune import TunerConfig, generate_candidates
+        from repro_torch.autotune import TunerConfig
         from repro_torch.configs import SHAPES, get_config
         from repro_torch.core import spec as S
         from repro_torch.core.executor import (CSFArrays, execute_plan,
@@ -1610,24 +2026,13 @@ def main(argv=None) -> int:
     os.makedirs(native.BUILD_DIR, exist_ok=True)
     cache_dir = tempfile.mkdtemp(prefix="plans-", dir=native.BUILD_DIR)
     blocks = (8,)
+    tune_keep = {}          # phase 10's, under a quarter of the card each
     for name in ("MTTKRP", "TTMc3"):
         spec, f = specs[name], factors[name]
-        full = generate_candidates(spec, nnz_levels=levels, blocks=blocks,
-                                   backends=("torch", "cuda",
-                                             "cuda-splitk"))
-        sizes = {c.key: largest_buffer_bytes(spec, c, levels)
-                 for c in full}
-        schedules: list = []
-        for c in full:
-            if (c.path, c.order) not in schedules:
-                schedules.append((c.path, c.order))
-        keep = 0
-        for m in range(1, len(schedules) + 1):
-            if all(sizes[c.key] <= FIT_BYTES for c in full
-                   if (c.path, c.order) in schedules[:m]):
-                keep = m
-            else:
-                break
+        full, sizes, schedules, keep = kept_schedules(spec, levels, blocks,
+                                                      FIT_BYTES)
+        tune_keep[name] = kept_schedules(spec, levels, blocks,
+                                         FIT_BYTES // DIST_RANKS)[3]
         if keep == 0:
             raise AssertionError(f"{name}: the model's first schedule "
                                  f"does not fit")
@@ -1663,10 +2068,7 @@ def main(argv=None) -> int:
         log(f"tune {name}: winner backend={tuned.backend} "
             f"fused={tuned.fused} block={tuned.block} "
             f"path={[str(t) for t in tuned.path]}")
-        replay = {"torch": ("combine",),
-                  "cuda": (("chain", "combine") if tuned.fused
-                           else (("reduce", "product"),)),
-                  "cuda-splitk": ("splitk", "combine")}[tuned.backend]
+        replay = engine_kernels(tuned.backend, tuned.fused)
 
         def run(tuned=tuned, f=f):
             return execute_plan(tuned, arrays, f)
@@ -1880,6 +2282,11 @@ def main(argv=None) -> int:
     # -- 9. the plan service: MoE dispatch at granite-moe-1b's widths -- #
     serve_stream(moe, dev, args.seed, drv)
     phase_done("9 plan service")
+
+    # -- 10. distributed SpTTN: four gloo ranks, one NCCL rank ---------- #
+    distributed_paths(coo, specs, factors, arrays, levels, torch_out, drv,
+                      tune_keep)
+    phase_done("10 distributed")
 
     missing = [s for s, n in drv.launches.items() if n == 0]
     if missing:

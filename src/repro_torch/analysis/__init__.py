@@ -1,9 +1,10 @@
 """Static plan verification: loop-nest legality as a checkable property.
 
 The paper's invariants (storage-prefix rule, strictly-descending fused
-chains, block divisibility, slice-mode kind, dtype promotion, mesh
-shape) re-derived symbolically into one pass — :func:`verify_plan` —
-that ``execute_plan`` consults *before* any kernel is built.  The codes
+chains, zero-on-pads stackability, block divisibility, slice-mode kind,
+dtype promotion, mesh shape) re-derived symbolically into one pass —
+:func:`verify_plan` — that ``execute_plan`` consults *before* any kernel
+is built.  The codes
 are the JAX package's, so one plan gets the same verdict from both.
 """
 from repro_torch.analysis.diagnostics import (DIAGNOSTIC_CODES, Diagnostic,
@@ -14,7 +15,9 @@ from repro_torch.analysis.invariants import (BACKENDS, chain_diagnostics,
                                              check_block_grid, check_mesh,
                                              check_order, check_path_output,
                                              check_slice, dtype_diagnostics,
-                                             fusible_chains)
+                                             fusible_chains,
+                                             plan_layout_walk,
+                                             stackable_diagnostics)
 from repro_torch.analysis.verify import verify_plan
 
 __all__ = [
@@ -34,5 +37,7 @@ __all__ = [
     "diag",
     "dtype_diagnostics",
     "fusible_chains",
+    "plan_layout_walk",
+    "stackable_diagnostics",
     "verify_plan",
 ]

@@ -14,7 +14,7 @@ fact.  :mod:`repro_torch.analysis.verify` orchestrates them into one report.
 """
 from __future__ import annotations
 
-from collections.abc import Mapping, Sequence
+from collections.abc import Callable, Mapping, Sequence
 
 from repro_torch.analysis.diagnostics import (BACKEND_DEVICE_KINDS,
                                               BACKENDS, CODEGEN_TARGETS,
@@ -333,6 +333,103 @@ def check_mesh(mesh) -> list[Diagnostic]:
             "SPTTN-E050", "plan.mesh.shard",
             f"plan mesh shard must be an integer, got {mesh['shard']!r}"))
     return diags
+
+
+# --------------------------------------------------------------------------- #
+# Stackability: zero-on-pads induction (DESIGN.md §7)
+# --------------------------------------------------------------------------- #
+def plan_layout_walk(spec: SpTTNSpec, path, chains,
+                     row_for: Callable[[int, int], bool]):
+    """Mirror the executor dispatch host-side: walk the plan tracking
+    which intermediates are FiberVals and at what CSF level, verify that
+    the zero-nnz padding of a distributed shard stays inert, and collect
+    the block-layout requests the code generator will make.
+
+    Returns ``(stackable, requests)``.  ``stackable`` is False when some
+    sparse-structured stage has no operand that is provably zero on pad
+    fibers at the stage's own level — e.g. a broadcast-down lift
+    (``v.level < lvl``) would gather REAL ancestor rows onto pad fibers
+    and pollute the result.  ``requests`` holds ``("stage", lvl,
+    out_lvl)`` for row-lowered reductions and ``("chain", lvl0, levels)``
+    for fused chains (segsum/product stages need no precomputed layout).
+    ``row_for(lvl, out_lvl)`` is the executor's strategy choice;
+    ``chains`` its detected fused chains (empty when not fused).
+    """
+    spos = _spos(spec)
+
+    # name -> CSF level for every FiberVal intermediate; all tracked
+    # entries are zero-on-pads by induction (a stage with a same-level
+    # zero operand multiplies pads to zero, and the sorted pad-segment
+    # tails reduce those zeros into the final row)
+    fib_lvl = {spec.sparse_input.name: len(spec.sparse_indices)}
+    requests: list[tuple] = []
+    ok = True
+    tid, n = 0, len(path)
+    while tid < n:
+        chain = chains.get(tid)
+        if chain and len(chain) > 1:
+            terms = [path[k] for k in chain]
+            first = terms[0]
+            lvl0 = _slv(spos, first.indices)
+            levels = tuple(_slv(spos, t.out.indices) for t in terms)
+            if not any(fib_lvl.get(o.name) == lvl0
+                       for o in (first.lhs, first.rhs)):
+                ok = False
+            requests.append(("chain", lvl0, levels))
+            last = terms[-1]
+            if last.out.name != "OUT" and levels[-1] > 0:
+                fib_lvl[last.out.name] = levels[-1]
+            tid += len(chain)
+            continue
+        term = path[tid]
+        tid += 1
+        term_sp = any(i in spos for i in term.indices)
+        lvl, out_lvl = _slv(spos, term.indices), _slv(spos, term.out.indices)
+        fibs = [o.name for o in (term.lhs, term.rhs) if o.name in fib_lvl]
+        prefix_ok = (_is_prefix(spos, term.indices)
+                     and _is_prefix(spos, term.out.indices))
+        is_final = term.out.name == "OUT"
+        if term_sp and fibs and (prefix_ok
+                                 or (is_final
+                                     and _is_prefix(spos, term.indices))):
+            # fiber path / final scatter: needs one same-level zero operand
+            if not any(fib_lvl[nm] == lvl for nm in fibs):
+                ok = False
+            if prefix_ok:
+                if out_lvl < lvl and row_for(lvl, out_lvl):
+                    requests.append(("stage", lvl, out_lvl))
+                if not is_final and out_lvl > 0:
+                    fib_lvl[term.out.name] = out_lvl
+            # the final-scatter product stage and segsum reductions use
+            # no precomputed layout
+        # else: dense fallback — densifying a tracked FiberVal scatters
+        # zeros for pad fibers (zero-on-pads by induction), so it's safe
+    return ok, requests
+
+
+def stackable_diagnostics(spec: SpTTNSpec, path,
+                          fused: bool = False) -> list[Diagnostic]:
+    """Why (or that) a plan cannot run on padded shards through the
+    collective code-generator engine (``make_distributed_cuda``); empty
+    when it can."""
+    if spec.output_is_sparse:
+        return [diag(
+            "SPTTN-E052", "spec.output",
+            "same-sparsity (TTTP-like) output: the stacked/sharded path "
+            "requires a dense output — per-shard leaf values cannot be "
+            "summed",
+            "use make_distributed's collective layout instead")]
+    chains = fusible_chains(spec, path) if fused else {}
+    ok, _ = plan_layout_walk(spec, path, chains,
+                             lambda lvl, out_lvl: False)
+    if not ok:
+        return [diag(
+            "SPTTN-E051", "plan",
+            "plan is not stackable: a sparse-structured stage has no "
+            "operand provably zero on pad fibers at its own CSF level",
+            "per-shard replay handles it (make_distributed_tuned falls "
+            "back automatically)")]
+    return []
 
 
 # --------------------------------------------------------------------------- #

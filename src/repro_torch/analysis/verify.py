@@ -19,6 +19,7 @@ _UNSET = object()
 def verify_plan(plan_or_spec, path=None, order=None, *,
                 backend=_UNSET, fused=_UNSET, block=_UNSET,
                 slice_mode=_UNSET, slice_chunks=_UNSET, mesh=_UNSET,
+                stacked: bool = False,
                 dtypes: Mapping[str, str] | None = None,
                 device_kind: str | None = None) -> PlanReport:
     """Statically verify a loop-nest schedule against every invariant the
@@ -32,8 +33,11 @@ def verify_plan(plan_or_spec, path=None, order=None, *,
     * ``verify_plan(spec, path, order, backend=..., ...)`` — raw
       schedule pieces, e.g. a tuner candidate before it exists as a plan.
 
-    ``dtypes`` (name -> dtype string) enables the crossing-buffer
-    promotion analysis.  ``device_kind`` (``"gpu"`` or ``"cpu"``) enables
+    ``stacked=True`` additionally requires the zero-on-pads induction of
+    the collective code-generator engine on padded shards (DESIGN.md §7,
+    ``distributed.make_distributed_cuda``).  ``dtypes`` (name -> dtype
+    string) enables the crossing-buffer promotion analysis.
+    ``device_kind`` (``"gpu"`` or ``"cpu"``) enables
     the backend/device-kind mismatch warning (SPTTN-W005) — omitted by
     default because running the CUDA engines on CPU tensors is how the
     tests hold them to the reference, not a defect.
@@ -90,5 +94,7 @@ def verify_plan(plan_or_spec, path=None, order=None, *,
     diags += inv.check_block(block)
     diags += inv.check_slice(spec, slice_mode, slice_chunks)
     diags += inv.check_mesh(mesh)
+    if stacked:
+        diags += inv.stackable_diagnostics(spec, path, fused=bool(fused))
     diags += inv.dtype_diagnostics(spec, path, dtypes)
     return PlanReport(diagnostics=tuple(diags))

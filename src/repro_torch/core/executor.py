@@ -32,6 +32,7 @@ import dataclasses
 import json
 import string
 from collections.abc import Mapping, Sequence
+from typing import ClassVar
 
 import numpy as np
 import torch
@@ -354,6 +355,11 @@ class CSFArrays:
     # (segment offsets here, stage layouts and index tables in
     # kernels/codegen/executor.py), keyed by what it was derived for
     cache: dict = dataclasses.field(default_factory=dict, repr=False)
+    #: every fiber's coordinates differ, so densifying fiber rows is a
+    #: plain put; a padded distributed shard
+    #: (:class:`repro_torch.distributed.spttn_dist.ShardArrays`) repeats
+    #: coordinate 0 on its zero pad fibers and densifies by adding
+    distinct_fibers: ClassVar[bool] = True
 
     @property
     def device(self) -> torch.device:
@@ -508,12 +514,13 @@ class VectorizedExecutor:
             return v.array.permute(perm)
         # scatter fiber rows into a dense array over its sparse prefix;
         # fibers are distinct, so a plain (non-accumulating) put is exact
+        # (a padded shard's zero pad fibers repeat coordinate 0: added)
         sp_inds = tuple(spec.sparse_indices[:v.level])
         full = sp_inds + v.dense
         shape = [spec.dims[i] for i in full]
         coords = tuple(csf.fiber_coord[v.level][m] for m in range(v.level))
         out = torch.zeros(shape, dtype=v.array.dtype, device=v.array.device)
-        out.index_put_(coords, v.array)
+        out.index_put_(coords, v.array, accumulate=not csf.distinct_fibers)
         perm = [full.index(i) for i in want]
         return out.permute(perm)
 

@@ -34,18 +34,20 @@ def segment_ptr(seg: np.ndarray, nseg: int) -> np.ndarray:
 
 def segment_combine_plain(rows: torch.Tensor, ptr: torch.Tensor,
                           nseg: int) -> torch.Tensor:
-    """Plain PyTorch version: ``(n, w)`` rows -> ``(nseg, w)`` sums."""
+    """Plain PyTorch version: ``(n, w)`` rows -> ``(nseg, w)`` sums (rows
+    past ``ptr[-1]`` are in no segment, as in the kernel)."""
     seg = torch.repeat_interleave(
         torch.arange(nseg, device=rows.device), ptr.diff())
     out = torch.zeros((nseg, rows.shape[1]), dtype=rows.dtype,
                       device=rows.device)
-    return out.index_add_(0, seg, rows)
+    return out.index_add_(0, seg, rows[:seg.numel()])
 
 
 def segment_combine(rows: torch.Tensor, ptr: torch.Tensor,
                     nseg: int) -> torch.Tensor:
     """Sum the rows of each segment: ``rows`` is ``(n, w)``, ``ptr`` the
-    int64 ``(nseg + 1,)`` row offsets of the sorted segments."""
+    int64 ``(nseg + 1,)`` row offsets of the sorted segments (rows past
+    ``ptr[-1]`` are in none)."""
     if rows.device.type == "cpu":
         return segment_combine_plain(rows, ptr, nseg)
     native.check_cuda_tensors(rows, ptr)

@@ -9,7 +9,8 @@ skewed pattern on its vector and scalar paths, the same bits twice; K6
 over K1's work items on its register-block and scalar paths (R = S =
 128 in four column tiles, a misaligned base), the same bits twice, and
 in float64 the bits of a PyTorch walk of its items, as K1's outer path;
-K8-K11, the LM kernels, in
+the collective ``cuda`` engine on a one-rank NCCL mesh, through the same
+launches as one device; K8-K11, the LM kernels, in
 float32 and bfloat16 at sizes no tile or chunk divides, K8's float32
 path at full tiles, ragged edges, D = 0, on misaligned bases (its
 scalar path) and the same bits call to call, K8's bf16 tensor-core
@@ -420,6 +421,51 @@ def test_engines_on_the_card_match_algorithm2(cuda, backend, spec):
         assert counts["reduce"] + counts["product"] > 0
     if backend == "cuda-splitk" and not spec.output_is_sparse:
         assert counts["splitk"] > 0 and counts["combine"] > 0
+
+
+@pytest.mark.parametrize("mode_axis", [{0: "data"}, {1: "data"}],
+                         ids=["i-gathered", "j-reduced"])
+def test_distributed_cuda_on_one_nccl_rank_matches_execute_plan(
+        cuda, tmp_path, mode_axis):
+    """``make_distributed_cuda`` on a one-rank NCCL mesh gives
+    ``execute_plan``'s output on the card through the same kernel
+    launches (one shard: its padding is empty), the ``all_gather`` of
+    mode i or the ``all_reduce`` of mode j going through NCCL — the
+    counterpart of the reference's one-trace-for-all-shards test."""
+    import datetime
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed import make_distributed_cuda
+    from repro_torch.distributed.spttn_dist import undo_cyclic
+    spec = S.mttkrp(30, 20, 25, 8)
+    coo = random_sparse((30, 20, 25), 0.05, seed=3, distribution="frostt")
+    csf = build_csf(coo)
+    rng = np.random.default_rng(4)
+    factors = {t.name: rng.standard_normal(
+        [spec.dims[i] for i in t.indices]).astype(np.float32)
+        for t in spec.inputs if not t.is_sparse}
+    p = dataclasses.replace(plan(spec, nnz_levels=csf.nnz_levels()),
+                            backend="cuda", block=8)
+    native.reset_launch_counts()
+    want = execute_plan(p, CSFArrays.from_csf(csf), factors)
+    torch.cuda.synchronize()
+    once = native.launch_counts()
+    dist.init_process_group(
+        "nccl", init_method=f"file://{tmp_path}/store", world_size=1,
+        rank=0, timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+        d = make_distributed_cuda(spec, p, coo, mesh, mode_axis)
+        native.reset_launch_counts()
+        got = undo_cyclic(d(factors), spec, mode_axis, mesh, coo.shape)
+        torch.cuda.synchronize()
+        assert native.launch_counts() == once
+        assert d.arrays.device.type == "cuda"
+    finally:
+        dist.destroy_process_group()
+    _close(got[:30], want, torch.float32)
 
 
 # --------------------------------------------------------------------- #
