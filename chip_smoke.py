@@ -103,6 +103,30 @@ any failure exits non-zero):
    device's, the engine's ms with no collective (all ranks at once, and
    each alone), each rank's peak and launches.  A rank that fails or
    hangs (300 s collective timeout) fails the run.
+11. The model stack (``repro_torch.models``) and its continuous-batching
+   ``Server`` (``repro_torch.serve``), which launch none of the kernels
+   above (the reference's model stack reaches no Pallas kernel): (1)
+   granite-moe-1b-a400m at full width in bf16 (24 layers, d_model 1,024,
+   16 heads over 8 kv heads, 32 experts top-8 of 512, vocab 49,155
+   padded to 49,280; 1,334,756,352 parameters from ``--seed``) serving 8
+   requests of 16-192 prompt tokens and 32 new tokens each through
+   ``Server(slots=4, cache_len=256)`` (a ``MODEL_SERVE`` line: run
+   seconds, tokens per second, peak memory, decode-step ms with 4 slots,
+   prefill ms by prompt length), then 20 decode steps traced (the
+   device's busy share, a ``PROFILE`` line); (2) prefill of 63 tokens
+   plus one decode step against ``forward`` over 64, in bf16 (§2's
+   element-wise bf16 bound) and in a float32 copy of the weights
+   (``1e-4 * max(1, max|forward|)``), with the MoE layers whose
+   last-token experts differ between the two paths counted
+   (``routing_flips``), and the float32 copy serving the same requests,
+   every token within that tolerance of ``forward``'s argmax at its
+   position (``MODEL_TOKENS``); (3) the ten reduced architectures in
+   float32: ``forward`` on the card against the CPU from the same params
+   (``1e-4``), prefill plus decode against forward, and a ``Server`` run
+   with ``cache_len`` at most the local window (seamless-m4t's server
+   must raise ``KeyError``, as the reference's does: its prefill needs
+   ``enc_frames``); (4) ``launch.serve.main(["--requests", "4"])``.  A
+   failed check fails the run; ``MODEL_PART`` lines time the parts.
 
 Every path of phases 2-7 is timed (CUDA events, median of 10 after 2 warm-ups) and its
 peak memory read.  Then one counted run, with the launch counts zeroed
@@ -196,6 +220,19 @@ DIST_CASES = (
     ("b", "MTTKRP", (2, 2), ("data", "model"), {0: "data", 1: "model"},
      "make_distributed_cuda"),
     ("c", "TTMc3", (4,), ("data",), {0: "data"}, "make_distributed_tuned"))
+# phase 11: the served model, its server's slots and cache rows, the
+# requests (prompt lengths drawn from [16, 192], each with max_new new
+# tokens), the prompt lengths whose prefill is timed, the decode steps of
+# the busy-share trace and the tokens of the decode-against-forward check
+MODEL_ARCH = "granite-moe-1b-a400m"
+MODEL_SLOTS = 4
+MODEL_CACHE_LEN = 256
+MODEL_REQUESTS = 8
+MODEL_PROMPTS = (16, 192)
+MODEL_MAX_NEW = 32
+MODEL_PREFILL_LENGTHS = (16, 64, 128, 192)
+MODEL_TRACE_STEPS = 20
+MODEL_CHECK_T = 64
 # kernel stem -> its name in a profiler trace
 TRACE_NAMES = {stem: f"spttn::{stem}_kernel<" for stem in (
     "reduce", "product", "splitk", "combine", "chain", "mttkrp", "ttmc",
@@ -1433,6 +1470,234 @@ def serve_stream(moe, dev, seed: int, drv) -> None:
     del first, x
 
 
+def served_tokens_check(label, params, cfg, reqs) -> None:
+    """Every token a server gave is ``forward``'s argmax at its position,
+    or its logit is within the float32 tolerance of that argmax's
+    (``1e-4 * max(1, max|row|)``: random weights give near-ties, so the
+    logits are compared, not the tokens)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import forward
+    dev = params["embed"]["w"].device
+    worst, argmax_equal, total = 0.0, 0, 0
+    for r in reqs:
+        seq = np.concatenate([np.asarray(r.prompt), np.asarray(r.out[:-1])])
+        logits, _ = forward(params, cfg, {"tokens": torch.as_tensor(
+            seq[None], dtype=torch.int32, device=dev)})
+        rows = logits[0, len(r.prompt) - 1:, :cfg.vocab].double().cpu()
+        got = torch.as_tensor(r.out)
+        gap = rows.max(-1).values - rows[torch.arange(len(r.out)), got]
+        tol = 1e-4 * rows.abs().amax(-1).clamp(min=1.0)
+        worst = max(worst, float((gap / tol).max()))
+        argmax_equal += int((rows.argmax(-1) == got).sum())
+        total += len(r.out)
+    rec = {"label": label, "tokens": total, "argmax_equal": argmax_equal,
+           "worst_gap/tol": worst}
+    log("MODEL_TOKENS " + json.dumps(rec))
+    if worst > 1.0:
+        raise AssertionError(f"{label}: a served token's logit is {worst} "
+                             f"times the tolerance under forward's maximum")
+
+
+def routing_recorder():
+    """Wrap ``moe._route`` to keep each call's expert choices (the MoE
+    layers' top-k, in call order); returns (the list, undo)."""
+    from repro_torch.models import moe
+    calls, real = [], moe._route
+
+    def route(p, m, x2d):
+        gate, idx, aux = real(p, m, x2d)
+        calls.append(idx)
+        return gate, idx, aux
+
+    moe._route = route
+    return calls, lambda: setattr(moe, "_route", real)
+
+
+def decode_against_forward(label, params, cfg, dev, seed) -> None:
+    """Prefill of ``MODEL_CHECK_T - 1`` tokens then one decode step,
+    against ``forward`` over all of them at the last two positions (the
+    real vocabulary's columns, by :func:`check`); the MoE layers whose
+    last-token experts differ between the two are counted
+    (``routing_flips``: a near-tie that the paths' roundings split)."""
+    import torch
+
+    from repro_torch.configs import make_batch
+    from repro_torch.models import decode_step, forward, prefill
+    from repro_torch.models.transformer import _encode
+    T = MODEL_CHECK_T
+    batch = make_batch(cfg, "train_4k", seed=seed, batch_override=2,
+                       seq_override=T, device=dev)
+    batch.pop("labels")
+    calls, undo = routing_recorder()
+    try:
+        full, _ = forward(params, cfg, batch)
+        n = len(calls)
+        last, caches = prefill(params, cfg, dict(
+            batch, tokens=batch["tokens"][:, :T - 1]), cache_len=T)
+        m = len(calls)
+        enc = (_encode(params, cfg, batch["enc_frames"]) if cfg.encdec
+               else None)
+        step, _ = decode_step(params, cfg, caches,
+                              batch["tokens"][:, T - 1:], T - 1, enc_out=enc)
+    finally:
+        undo()
+    flips = sum(int((torch.sort(f.view(2, T, -1)[:, T - 1], -1).values
+                     != torch.sort(d, -1).values).any())
+                for f, d in zip(calls[:n], calls[m:]))
+    log(f"MODEL_DECODE {label}: {n} MoE layers, routing_flips {flips}")
+    V = cfg.vocab
+    check(f"{label} prefill vs forward", last[:, 0, :V], full[:, T - 2, :V])
+    check(f"{label} decode vs forward", step[:, 0, :V], full[:, T - 1, :V])
+
+
+def serve_models(dev, seed: int) -> None:
+    """Phase 11: the model stack and its ``Server`` (see the module's
+    docstring)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ARCHS, get_config, get_reduced
+    from repro_torch.configs import make_batch
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import (decode_step, forward, model_init,
+                                    prefill)
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.serve import Request, Server
+    t_part = [time.perf_counter()]
+
+    def part_done(name: str) -> None:
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        log(f"MODEL_PART {name}: {now - t_part[0]:.1f} s")
+        t_part[0] = now
+
+    cfg = get_config(MODEL_ARCH)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    t0 = time.perf_counter()
+    params, _ = model_init(cfg, gen)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"MODEL {cfg.name}: {n_params} parameters, "
+        f"{sum(t.numel() * t.element_size() for t in tree_leaves(params))} "
+        f"bytes in {cfg.dtype}, drawn in {time.perf_counter() - t0:.2f} s")
+
+    # (1) the bf16 server at full width
+    rng = np.random.default_rng(seed)
+    lo, hi = MODEL_PROMPTS
+    prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32)
+               for n in rng.integers(lo, hi + 1, MODEL_REQUESTS)]
+
+    def serve(p, c):
+        srv = Server(c, p, slots=MODEL_SLOTS, cache_len=MODEL_CACHE_LEN)
+        reqs = [Request(prompt=q, max_new=MODEL_MAX_NEW) for q in prompts]
+        for r in reqs:
+            srv.submit(r)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        done = srv.run(max_steps=4 * MODEL_MAX_NEW * MODEL_REQUESTS)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        if len(done) != len(reqs) or any(len(r.out) != MODEL_MAX_NEW
+                                         for r in reqs):
+            raise AssertionError(f"served {len(done)} of {len(reqs)}, "
+                                 f"lengths {[len(r.out) for r in reqs]}")
+        # the peak, and what was resident when the run began (earlier
+        # phases' tensors and the weights included)
+        return srv, reqs, secs, (torch.cuda.max_memory_allocated(),
+                                 resident)
+
+    srv, reqs, secs, (peak, resident) = serve(params, cfg)
+    ntok = sum(len(r.out) for r in reqs)
+    toks = torch.zeros((MODEL_SLOTS, 1), dtype=torch.int32, device=dev)
+    pos = torch.tensor([lo + 3 * s for s in range(MODEL_SLOTS)], device=dev)
+
+    def steps(n, p=params, c=cfg, caches=srv.caches):
+        for _ in range(n):
+            _, caches = decode_step(p, c, caches, toks, pos)
+
+    decode_ms = time_ms(lambda: steps(1))
+    prefill_ms = {}
+    for T in MODEL_PREFILL_LENGTHS:
+        batch = {"tokens": torch.as_tensor(prompts[0][:1].repeat(T)[None],
+                                           device=dev)}
+        prefill_ms[T] = time_ms(lambda: prefill(
+            params, cfg, batch, cache_len=MODEL_CACHE_LEN), reps=5)
+    log("MODEL_SERVE " + json.dumps({
+        "arch": cfg.name, "dtype": cfg.dtype, "slots": MODEL_SLOTS,
+        "cache_len": MODEL_CACHE_LEN, "requests": len(reqs),
+        "prompt_lengths": [len(q) for q in prompts],
+        "generated_tokens": ntok, "run_s": secs,
+        "tokens_per_s": ntok / secs, "peak_bytes": peak,
+        "resident_bytes_before": resident,
+        "decode_step_ms": decode_ms,
+        "decode_tokens_per_s": MODEL_SLOTS / decode_ms * 1e3,
+        "prefill_ms": prefill_ms}))
+    part_done("1a bf16 server, timed prefills and decode steps")
+    trace_ms = time_ms(lambda: steps(MODEL_TRACE_STEPS), reps=1, warmup=0)
+    profile_path(f"serve {cfg.name} {MODEL_TRACE_STEPS} decode steps",
+                 lambda: steps(MODEL_TRACE_STEPS), trace_ms, {})
+    del srv, steps
+    part_done("1b decode steps traced")
+
+    # (2) decode against forward in bf16 and float32; the float32 server's
+    # tokens against forward's argmax
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = tree_map(lambda t: t.float(), params)
+    for label, p, c in ((f"{cfg.name} bf16", params, cfg),
+                        (f"{cfg.name} f32", params32, cfg32)):
+        decode_against_forward(label, p, c, dev, seed)
+    del params
+    _, reqs32, secs32, peak32 = serve(params32, cfg32)
+    log(f"MODEL_SERVE f32: {sum(len(r.out) for r in reqs32)} tokens in "
+        f"{secs32!r} s, peak {peak32[0]} bytes ({peak32[1]} resident "
+        f"before the run)")
+    served_tokens_check(f"{cfg.name} f32 server", params32, cfg32, reqs32)
+    del params32
+    part_done("2 decode against forward, float32 server")
+
+    # (3) the ten reduced architectures, float32: cuda against the CPU,
+    # decode against forward, and one server run
+    for arch in ARCHS:
+        small = get_reduced(arch)
+        cpu_params, _ = model_init(small, seed, device="cpu")
+        p = tree_map(lambda t: t.to(dev), cpu_params)
+        batch = make_batch(small, "train_4k", seed=seed, batch_override=2,
+                           seq_override=16, device="cpu")
+        want, _ = forward(cpu_params, small, batch)
+        got, _ = forward(p, small, {k: v.to(dev) for k, v in batch.items()})
+        check(f"{arch} forward cuda vs cpu", got, want)
+        decode_against_forward(arch, p, small, dev, seed)
+        cache_len = min(MODEL_CHECK_T, small.window or MODEL_CHECK_T)
+        srv = Server(small, p, slots=2, cache_len=cache_len)
+        sreqs = [Request(prompt=rng.integers(0, small.vocab, n).astype(
+            np.int32), max_new=4) for n in (5, 9, 3)]
+        for r in sreqs:
+            srv.submit(r)
+        if small.encdec:      # the reference's server never passes frames
+            try:
+                srv.run(max_steps=32)
+            except KeyError as e:
+                log(f"MODEL_SMALL {arch}: server raises KeyError({e}) as "
+                    f"the reference's does")
+                continue
+            raise AssertionError(f"{arch}: the server ran without "
+                                 f"enc_frames")
+        srv.run(max_steps=32)
+        served_tokens_check(f"{arch} server", p, small, sreqs)
+    part_done("3 reduced architectures")
+
+    # (4) the serving CLI on the card
+    done = launch_serve.main(["--requests", "4"])
+    if len(done) != 4:
+        raise AssertionError(f"launch.serve served {len(done)} of 4")
+    part_done("4 launch.serve")
+
+
 def engine_kernels(backend: str, fused: bool = False) -> tuple:
     """The kernels a plan on ``backend`` launches (a tuple inside: any
     one of its stems): the ``torch`` engine's segment sums run K4c."""
@@ -2287,6 +2552,10 @@ def main(argv=None) -> int:
     distributed_paths(coo, specs, factors, arrays, levels, torch_out, drv,
                       tune_keep)
     phase_done("10 distributed")
+
+    # -- 11. the model stack and its server: granite-moe-1b at full width #
+    serve_models(dev, args.seed)
+    phase_done("11 serve")
 
     missing = [s for s, n in drv.launches.items() if n == 0]
     if missing:

@@ -665,6 +665,57 @@ class VectorizedExecutor:
         return arr
 
 
+def execute_unfactorized(spec: SpTTNSpec, csf, factors: Mapping,
+                         device=None) -> torch.Tensor:
+    """The 'unfactorized' schedule (paper §2.4.1): all factors gathered to
+    the leaves and multiplied in one pass (TACO/COMET default).  Kept as a
+    baseline for the benchmarks.  ``csf`` is a :class:`CSFArrays` or a
+    host CSF tensor, uploaded to ``device`` (``None``: the CUDA card)."""
+    csf = as_arrays(csf, device)
+    factors = factors_to_torch(factors, csf.device)
+    spos = {s: i for i, s in enumerate(spec.sparse_indices)}
+    letters = {i: string.ascii_lowercase[n]
+               for n, i in enumerate(spec.all_indices)}
+    lvl = csf.order
+    operands = [csf.values]
+    subs = ["Z"]
+    for t in spec.inputs:
+        if t.is_sparse:
+            continue
+        idx = tuple(csf.fiber_coord[lvl][spos[i]] if i in spos
+                    else slice(None) for i in t.indices)
+        g = factors[t.name][idx]
+        adv = [ax for ax, i in enumerate(t.indices) if i in spos]
+        # advanced indices side by side land where the first one was (so
+        # the fiber axis moves to the front); split by a slice, they
+        # already lead (numpy's rule)
+        if adv and adv[0] != 0 and adv == list(range(adv[0],
+                                                     adv[0] + len(adv))):
+            g = torch.movedim(g, adv[0], 0)
+        operands.append(g)
+        subs.append("Z" + "".join(letters[i] for i in t.indices
+                                  if i not in spos))
+    out_sp = [i for i in spec.output.indices if i in spos]
+    out_dn = [i for i in spec.output.indices if i not in spos]
+    expr = ",".join(subs) + "->Z" + "".join(letters[i] for i in out_dn)
+    per_leaf = torch.einsum(expr, *operands)
+    if spec.output_is_sparse:
+        return per_leaf
+    p_out = len(out_sp)
+    if p_out < lvl:
+        per_leaf = segment_sum(csf, per_leaf, lvl, p_out)
+    # put the rows onto the dense output over the sparse output indices
+    full = tuple(out_sp) + tuple(out_dn)
+    if p_out == 0:
+        out = per_leaf[0]
+    else:
+        out = per_leaf.new_zeros([spec.dims[i] for i in full])
+        out[tuple(csf.fiber_coord[p_out][m] for m in range(p_out))] = \
+            per_leaf                              # each fiber once
+    perm = [full.index(i) for i in spec.output.indices]
+    return out.permute(perm) if perm != list(range(len(perm))) else out
+
+
 # =========================================================================== #
 # Engine registry
 # =========================================================================== #

@@ -12,10 +12,11 @@ The reference's names and their counterparts here:
 ``shard_mesh_key`` -> ``shard_mesh_key``;
 ``stackable_plan`` -> ``stackable_plan``;
 ``unpad_local_csf`` -> ``unpad_local_csf``;
-modules ``collectives`` -> ``collectives``, ``spttn_dist`` -> ``spttn_dist``
-(``sharding``, the LM stack's placements, is not ported yet).
+modules ``collectives`` -> ``collectives``, ``spttn_dist`` -> ``spttn_dist``,
+``sharding`` -> ``sharding`` (only ``replicate`` and ``shard_activation``,
+the identities outside a mesh context, so far).
 """
-from repro_torch.distributed import collectives, spttn_dist
+from repro_torch.distributed import collectives, sharding, spttn_dist
 from repro_torch.distributed.spttn_dist import (DIST_MODES,
                                                 DistributedPlanReplay,
                                                 make_distributed,
@@ -28,7 +29,7 @@ from repro_torch.distributed.spttn_dist import (DIST_MODES,
                                                 unpad_local_csf)
 
 __all__ = [
-    "collectives", "spttn_dist", "DIST_MODES", "DistributedPlanReplay",
+    "collectives", "sharding", "spttn_dist", "DIST_MODES", "DistributedPlanReplay",
     "make_distributed", "make_distributed_cuda", "make_distributed_tuned",
     "partition_mesh", "partition_nonzeros", "shard_mesh_key",
     "stackable_plan", "unpad_local_csf",

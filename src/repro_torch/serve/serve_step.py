@@ -1,4 +1,10 @@
-"""The SpTTN plan-cache hot path of serving (DESIGN.md §9).
+"""Serving runtime (DESIGN.md §9): batched prefill + decode with slot-based
+continuous batching, plus the SpTTN plan-cache hot path.
+
+:class:`Server` holds a fixed pool of B slots of independent sequences;
+finished slots are refilled from the queue without stopping the decode loop
+(slot count and cache length never change).  The reference wraps
+``decode_step`` in ``jax.jit``; here it runs eagerly on the params' device.
 
 :class:`PlanService` is the serving-side owner of the autotuner stack: it
 resolves every incoming sparsity pattern to a tuned plan through three
@@ -9,14 +15,128 @@ search, then runs hot.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import time
 from collections.abc import Sequence
 
 import numpy as np
+import torch
 
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import tree_map
+from repro_torch.models.transformer import decode_step, init_cache, prefill
 from repro_torch.sparse.coo import COOTensor, from_coords
 from repro_torch.sparse.csf import CSFTensor, build_csf, build_csf_batch
+
+
+@dataclasses.dataclass
+class Request:
+    prompt: np.ndarray            # (T,) int32
+    max_new: int = 16
+    out: list = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+class Server:
+    """Single-host continuous-batching server over ``slots`` sequences of
+    at most ``cache_len`` positions, on the device of ``params``.
+
+    Each slot decodes at its own position.  A slot whose position passes
+    ``cache_len`` keeps decoding over its full cache, its new rows
+    dropped, as the reference's does.  A prompt longer than ``cache_len``
+    is refused at :meth:`submit`; a ``cache_len`` above a local layer's
+    window raises when the first prompt is spliced into the pool (the
+    pool holds a ring of ``window`` rows, the prompt's cache
+    ``cache_len``), as the reference's does."""
+
+    def __init__(self, cfg: ModelConfig, params, slots: int = 4,
+                 cache_len: int = 256):
+        self.cfg = cfg
+        self.params = params
+        self.slots = slots
+        self.cache_len = cache_len
+        self.device = params["embed"]["w"].device
+        self.caches = init_cache(cfg, slots, cache_len, device=self.device)
+        self.pos = np.zeros(slots, np.int32)
+        self.active: list[Request | None] = [None] * slots
+        self.queue: collections.deque[Request] = collections.deque()
+
+    def submit(self, req: Request):
+        if len(req.prompt) > self.cache_len:
+            raise ValueError(
+                f"prompt length {len(req.prompt)} exceeds cache_len "
+                f"{self.cache_len}; raise cache_len or truncate the prompt")
+        self.queue.append(req)
+
+    def _fill_slot(self, s: int):
+        if not self.queue:
+            return
+        req = self.queue.popleft()
+        T = len(req.prompt)
+        batch = {"tokens": torch.as_tensor(
+            np.asarray(req.prompt)[None], dtype=torch.int32).to(self.device)}
+        logits, caches1 = prefill(self.params, self.cfg, batch,
+                                  cache_len=self.cache_len)
+        # splice the single-row cache into slot s of the pooled cache
+        self.caches = tree_map(
+            lambda pool, one: _splice(pool, one, s, self.cfg.window),
+            self.caches, caches1)
+        req.out.append(int(torch.argmax(logits[0, -1])))
+        self.active[s] = req
+        self.pos[s] = T
+
+    def _sweep(self, finished: list[Request]):
+        """Retire every slot whose request reached max_new."""
+        for s, req in enumerate(self.active):
+            if req is not None and len(req.out) >= req.max_new:
+                req.done = True
+                finished.append(req)
+                self.active[s] = None
+
+    def step(self) -> list[Request]:
+        """One decode step across all active slots; returns the requests
+        that finished during this step (including ones done straight out
+        of prefill — max_new=1 never reaches the decode at all)."""
+        finished: list[Request] = []
+        while True:
+            for s in range(self.slots):
+                if self.active[s] is None:
+                    self._fill_slot(s)
+            n = len(finished)
+            self._sweep(finished)
+            # a sweep that freed slots may admit more queued work before
+            # the (expensive) decode launch; loop until admission settles
+            if len(finished) == n or not self.queue:
+                break
+        if all(a is None for a in self.active):
+            return finished
+        toks = np.zeros((self.slots, 1), np.int32)
+        for s, req in enumerate(self.active):
+            if req is not None and req.out:
+                toks[s, 0] = req.out[-1]
+        # per-slot positions: each sequence decodes at its own depth, so
+        # mixed-length prompts read/write the right cache rows
+        logits, self.caches = decode_step(
+            self.params, self.cfg, self.caches,
+            torch.from_numpy(toks).to(self.device),
+            torch.from_numpy(self.pos.astype(np.int64)).to(self.device))
+        nxt = torch.argmax(logits[:, 0], -1).cpu().numpy()
+        for s, req in enumerate(self.active):
+            if req is None:
+                continue
+            req.out.append(int(nxt[s]))
+            self.pos[s] += 1
+        self._sweep(finished)
+        return finished
+
+    def run(self, max_steps: int = 64) -> list[Request]:
+        finished = []
+        for _ in range(max_steps):
+            if not self.queue and all(a is None for a in self.active):
+                break
+            finished.extend(self.step())
+        return finished
 
 
 def moe_routing_coo(idx: np.ndarray, n_experts: int,
@@ -208,3 +328,32 @@ class PlanService:
         plan resolution + dispatch.  Returns a list of (output, stats)."""
         csfs = build_csf_batch(list(routings))
         return [self.dispatch(csf, x) for csf, x in zip(csfs, xs)]
+
+
+def _splice(pool, one, s: int, window: int | None = None):
+    """Insert a batch-1 cache leaf into slot s of the pooled cache leaf
+    (the batch axis is the first axis where the shapes disagree — stacked
+    groups prepend a layer-group axis shared by both).  A leaf larger than
+    the pool on another axis — a prompt's ``cache_len`` rows against a
+    local layer's ring of ``window`` rows — raises, as the reference's
+    ``dynamic_update_slice`` does."""
+    if pool.shape == one.shape:
+        return one.to(pool.dtype)
+    for ax in range(pool.ndim):
+        if one.shape[ax] == 1 and pool.shape[ax] != 1:
+            break
+    else:
+        return pool
+    for a, (n, m) in enumerate(zip(one.shape, pool.shape)):
+        if n > m:
+            raise ValueError(
+                f"a prompt's cache leaf {tuple(one.shape)} does not fit the "
+                f"pooled cache leaf {tuple(pool.shape)} on axis {a}: a local "
+                f"layer's pool holds a ring of min(cache_len, window="
+                f"{window}) rows; keep cache_len <= {window}")
+    at = [slice(0, n) for n in one.shape]
+    start = min(s, pool.shape[ax] - 1)      # clamped, as the reference's
+    at[ax] = slice(start, start + 1)
+    out = pool.clone()
+    out[tuple(at)] = one.to(pool.dtype)
+    return out

@@ -1351,3 +1351,84 @@ def test_lm_wrappers_reject_what_their_kernels_lack(cuda):
     wide = torch.zeros((1, 2, 1615), device=cuda)
     with pytest.raises(ValueError, match="32 state columns"):
         wkv6.wkv6_kernel(wide, wide, wide, wide, wide[:, 0].contiguous())
+
+
+# --------------------------------------------------------------------------- #
+# the model stack and its server on the card (no kernel of this package:
+# the device-only faults of plain PyTorch on CUDA)
+# --------------------------------------------------------------------------- #
+def _model_pair(arch, cuda):
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import model_init
+    from repro_torch.models.layers import tree_map
+    cfg = get_reduced(arch)
+    cpu, _ = model_init(cfg, 0, device="cpu")
+    return cfg, cpu, tree_map(lambda t: t.to(cuda), cpu)
+
+
+def _model_close(got, want):
+    """float32 logits: ``1e-4 * max(1, max|cpu|)`` (another summation
+    order on the card)."""
+    got, want = got.double().cpu(), want.double()
+    tol = 1e-4 * max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= tol
+
+
+MODEL_ARCHS = ["recurrentgemma-9b", "olmo-1b", "gemma3-1b", "qwen1.5-32b",
+               "smollm-135m", "rwkv6-3b", "granite-moe-1b-a400m",
+               "deepseek-v2-236b", "seamless-m4t-large-v2",
+               "phi-3-vision-4.2b"]
+
+
+@pytest.mark.parametrize("arch", MODEL_ARCHS)
+def test_model_forward_and_decode_on_the_card_match_the_cpu(cuda, arch):
+    """``forward`` and prefill + ``decode_step`` (per-row positions, one
+    past the cache's end: its write dropped) on the card against the
+    same calls on the CPU, from the same params."""
+    from repro_torch.configs import make_batch
+    from repro_torch.models import decode_step, forward, prefill
+    from repro_torch.models.transformer import _encode
+    cfg, cpu, dev = _model_pair(arch, cuda)
+    batch = make_batch(cfg, "train_4k", batch_override=2, seq_override=12,
+                       device="cpu")
+    on_card = {k: v.to(cuda) for k, v in batch.items()}
+    _model_close(forward(dev, cfg, on_card)[0], forward(cpu, cfg, batch)[0])
+    outs = []
+    for p, b in ((cpu, batch), (dev, on_card)):
+        enc = _encode(p, cfg, b["enc_frames"]) if cfg.encdec else None
+        last, caches = prefill(p, cfg, dict(b, tokens=b["tokens"][:, :11]),
+                               cache_len=11)
+        pos = torch.tensor([10, 11], device=b["tokens"].device)
+        step, _ = decode_step(p, cfg, caches, b["tokens"][:, 11:], pos,
+                              enc_out=enc)
+        outs.append((last, step))
+    torch.cuda.synchronize()
+    for got, want in zip(outs[1], outs[0]):
+        _model_close(got, want)
+
+
+@pytest.mark.parametrize("arch", [a for a in MODEL_ARCHS
+                                  if a != "seamless-m4t-large-v2"])
+def test_server_on_the_card_serves_the_cpu_servers_requests(cuda, arch):
+    """A server on the card finishes every request of mixed lengths, with
+    ``cache_len`` at most the local window, and each token's logit on
+    the CPU's forward is within tolerance of that row's maximum."""
+    from repro_torch.models import forward
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.serve import Request, Server
+    cfg, cpu, dev = _model_pair(arch, cuda)
+    rng = np.random.default_rng(0)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab, n).astype(np.int32),
+                    max_new=4) for n in (5, 9, 2)]
+    srv = Server(cfg, dev, slots=2, cache_len=min(16, cfg.window or 16))
+    for r in reqs:
+        srv.submit(r)
+    assert len(srv.run(max_steps=32)) == 3
+    assert all(t.device.type == cuda.type for t in tree_leaves(srv.caches))
+    for r in reqs:
+        seq = np.concatenate([r.prompt, np.asarray(r.out[:-1], np.int32)])
+        logits, _ = forward(cpu, cfg, {"tokens": torch.as_tensor(seq[None])})
+        rows = logits[0, len(r.prompt) - 1:].double()
+        gap = rows.max(-1).values - rows[torch.arange(4), r.out]
+        assert float(gap.max()) <= 1e-4 * max(1.0,
+                                              float(rows.abs().max()))

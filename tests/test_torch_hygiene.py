@@ -1,8 +1,12 @@
 """Hygiene of the port: imports, devices, launch counts, unported parts.
 
 * ``repro_torch`` (and ``chip_smoke.py``) import neither JAX nor the JAX
-  package — checked statically over every source file and dynamically in
-  a fresh interpreter that plans and runs a kernel on the CPU;
+  package — checked statically over every source file (the model stack,
+  ``serve``, ``launch`` and ``distributed/sharding.py`` included) and
+  dynamically in a fresh interpreter that plans and runs a kernel, a
+  model's forward, a ``Server`` and ``launch.serve`` on the CPU;
+* every name of the reference's ``repro.core.__all__`` resolves in
+  ``repro_torch.core``;
 * on CPU tensors no kernel launches (every launch count stays 0), and a
   CUDA-less host never falls back to the CPU unless asked;
 * what the port once left out and raised ``NotImplementedError`` for
@@ -101,6 +105,21 @@ svc = PlanService(device="cpu", memory_budget=1024)
 out, st = svc.dispatch(moe_routing_coo(idx, 4, 8),
                        rng.standard_normal((16, 8)).astype(np.float32))
 assert tuple(out.shape) == (4, 8, 8) and st.kind == "cold"
+from repro_torch.configs import get_reduced, make_batch
+from repro_torch.launch import serve
+from repro_torch.models import forward, model_init
+from repro_torch.serve import Request, Server
+cfg = get_reduced("granite-moe-1b-a400m")
+params, _ = model_init(cfg, 0, device="cpu")
+batch = make_batch(cfg, "train_4k", batch_override=1, seq_override=6,
+                   device="cpu")
+assert tuple(forward(params, cfg, batch)[0].shape) == (1, 6, cfg.vocab)
+srv = Server(cfg, params, slots=2, cache_len=16)
+srv.submit(Request(prompt=np.arange(5, dtype=np.int32), max_new=3))
+(req,) = srv.run()
+assert len(req.out) == 3
+assert len(serve.main(["--requests", "2", "--max-new", "2",
+                       "--device", "cpu"])) == 2
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
@@ -112,6 +131,27 @@ print("CLEAN")
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "CLEAN" in out.stdout
+
+
+def test_the_model_stack_is_checked_by_the_import_scan():
+    """The static scan above walks the modules of this slice."""
+    scanned = {os.path.relpath(p, PORT) for p in _port_sources()}
+    for mod in ("models/__init__.py", "models/layers.py",
+                "models/attention.py", "models/moe.py",
+                "models/recurrent.py", "models/transformer.py",
+                "models/weights.py", "serve/serve_step.py",
+                "launch/__init__.py", "launch/serve.py",
+                "distributed/sharding.py"):
+        assert mod in scanned, mod
+
+
+def test_every_reference_core_name_resolves_in_the_port():
+    import repro.core as jcore
+    import repro_torch.core as tcore
+    missing = [n for n in jcore.__all__ if not hasattr(tcore, n)]
+    assert not missing
+    assert set(jcore.__all__) <= set(tcore.__all__)
+    assert tcore.execute_unfactorized is tcore.executor.execute_unfactorized
 
 
 def test_cpu_tensors_launch_no_kernel():

@@ -264,3 +264,27 @@ def test_unported_planner_hooks_raise(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tplanner.plan(spec, autotune=True)
+
+
+@pytest.mark.parametrize("name", ["mttkrp", "ttmc3", "tttp3"])
+def test_execute_unfactorized_matches_reference(name):
+    """The unfactorized baseline schedule (every factor gathered to the
+    leaves, one einsum, then the segment sum and the scatter) gives the
+    reference's result on the same tensor and factors, and the dense
+    oracle's (float32: ``1e-5 * max(1, max|ref|)``)."""
+    args, density = next((a, d) for n, a, d in SPECS if n == name)
+    jspec, tspec = getattr(JS, name)(*args), getattr(TS, name)(*args)
+    jc, tc = _tensor_pair(jspec, tspec, density)
+    rng = np.random.default_rng(1)
+    factors = {t.name: rng.standard_normal(
+        tuple(jspec.dims[i] for i in t.indices)).astype(np.float32)
+        for t in jspec.inputs if not t.is_sparse}
+    want = np.asarray(jex.execute_unfactorized(
+        jspec, jex.CSFArrays.from_csf(jc), factors))
+    got = tex.execute_unfactorized(tspec, tc, factors, device="cpu")
+    assert got.device.type == "cpu" and tuple(got.shape) == want.shape
+    tol = 1e-5 * max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=tol)
+    if not tspec.output_is_sparse:
+        oracle = tex.dense_oracle(tspec, tc, factors)
+        np.testing.assert_allclose(got.numpy(), oracle, rtol=0, atol=tol)
