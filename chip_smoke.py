@@ -127,6 +127,27 @@ any failure exits non-zero):
    must raise ``KeyError``, as the reference's does: its prefill needs
    ``enc_frames``); (4) ``launch.serve.main(["--requests", "4"])``.  A
    failed check fails the run; ``MODEL_PART`` lines time the parts.
+12. Single-device training (``repro_torch.train``, ``repro_torch.data``,
+   ``launch/train.py``), which launches none of the kernels above (the
+   launch counts stay 0 across the phase): granite-moe-1b-a400m at full
+   width in bf16 with random weights from ``--seed``, at ``train_4k``'s
+   T = 4,096 with the global batch cut from 256 to 4 (2 microbatches of
+   2; a ``TRAIN_CUT`` line), ``remat=True``, batches from
+   ``SyntheticLM``.  (1) Six steps from the seed's state S0 (a ``TRAIN``
+   line: each step's loss and grad_norm, all finite, CUDA-event step
+   ms, the median of steps 2-6, tokens/s, peak memory); (2) from S0
+   again three steps, ``checkpoint.save`` under ``_build/``, ``restore``
+   into a fresh tree, three more steps: params, ``m``, ``v`` and ``step``
+   equal (1)'s bit for bit (a ``CHECKPOINT`` line: bytes, save and
+   restore seconds, free disk); (3) one step traced (``PROFILE``); (4)
+   the ten reduced architectures in float32, one step on the card
+   against the CPU from the same state (loss, lr, grad_norm ``1e-5``
+   relative; ``m``, ``v`` ``2e-4 · max + 1e-7`` a leaf; params ``2·lr +
+   1e-6 · max``), ``remat=True`` against ``False`` (loss within
+   ``1e-5``), and smollm-135m reduced at 2 microbatches against 1
+   (params within ``5e-3``); (5) ``launch.train.main`` twice over one
+   checkpoint directory: the second run prints ``resumed at 10``.
+   ``MODEL_PART train`` lines time the parts.
 
 Every path of phases 2-7 is timed (CUDA events, median of 10 after 2 warm-ups) and its
 peak memory read.  Then one counted run, with the launch counts zeroed
@@ -175,6 +196,7 @@ import argparse
 import collections
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -233,6 +255,12 @@ MODEL_MAX_NEW = 32
 MODEL_PREFILL_LENGTHS = (16, 64, 128, 192)
 MODEL_TRACE_STEPS = 20
 MODEL_CHECK_T = 64
+# phase 12: training granite-moe-1b at full width, train_4k's T
+TRAIN_ARCH = "granite-moe-1b-a400m"
+TRAIN_MICROBATCHES = 2
+TRAIN_MICROBATCH_ROWS = 2        # global batch 4 of train_4k's 256
+TRAIN_STEPS = 6
+TRAIN_CKPT_AT = 3
 # kernel stem -> its name in a profiler trace
 TRACE_NAMES = {stem: f"spttn::{stem}_kernel<" for stem in (
     "reduce", "product", "splitk", "combine", "chain", "mttkrp", "ttmc",
@@ -1698,6 +1726,294 @@ def serve_models(dev, seed: int) -> None:
     part_done("4 launch.serve")
 
 
+def hold(name: str, err: float, tol: float) -> None:
+    """A ``check`` line for an error already reduced to one number, held
+    to its own tolerance."""
+    ok = err <= tol
+    log(f"check {name}: max_abs_err={err!r} tol={tol!r} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: error {err} over its tolerance {tol}")
+
+
+def hold_train_state(label: str, got, gm, want, wm) -> None:
+    """One train step's result against another's from the same state
+    (the CPU tests' bounds): loss, lr and grad_norm within ``1e-5``
+    relative; ``m`` and ``v`` within ``2e-4 · max|want| + 1e-7`` a leaf;
+    params within ``2·lr₁ + 1e-6 · max|p|`` (the first AdamW step moves
+    a param by about ``lr·sign(g)``: a gradient near 0 whose sign another
+    summation order flips moves it by ``2·lr``)."""
+    from repro_torch.train.tree import key_paths
+    for name in ("loss", "lr", "grad_norm"):
+        g, w = float(gm[name]), float(wm[name])
+        hold(f"{label} {name}", abs(g - w), 1e-5 * abs(w))
+    lr1 = float(wm["lr"])
+    for part, tree, base in (("m", lambda s: s.opt.m, None),
+                             ("v", lambda s: s.opt.v, None),
+                             ("params", lambda s: s.params, 2 * lr1)):
+        worst = 0.0
+        for (k, a), (_, b) in zip(key_paths(tree(got)),
+                                  key_paths(tree(want))):
+            if not b.numel():
+                continue
+            b = b.double().cpu()
+            scale = float(b.abs().max())
+            tol = 2e-4 * scale + 1e-7 if base is None else base + 1e-6 * scale
+            err = float((a.double().cpu() - b).abs().max())
+            if not err <= tol:
+                raise AssertionError(f"{label} {part} {k}: {err} > {tol}")
+            worst = max(worst, err / tol)
+        log(f"check {label} {part}: worst_err/tol={worst!r} ok")
+
+
+def same_bits(label: str, got, want) -> None:
+    """Every leaf of ``got`` equals ``want``'s bit for bit."""
+    import torch
+
+    from repro_torch.train.tree import key_paths
+    n = 0
+    for (k, a), (j, b) in zip(key_paths(got), key_paths(want)):
+        if k != j or a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"{label}: leaf {k} / {j} differs in kind")
+        if a.dtype == torch.bfloat16:
+            a, b = a.view(torch.int16), b.view(torch.int16)
+        if not torch.equal(a, b):
+            raise AssertionError(f"{label}: leaf {k} differs")
+        n += 1
+    log(f"check {label}: {n} leaves bit for bit ok")
+
+
+def gather_backward(table_shape, ids, seed: int) -> None:
+    """The embedding gather's backward on a token stream, as indexing
+    (``w[ids]``: sort-based ``index_put_``, a row's repeats summed one
+    after another) and as ``F.embedding`` (what ``embed_lookup`` calls):
+    each one's forward-and-backward ms (CUDA events, median of 10), the
+    same bits twice, and its error against a float64 sum, largest on the
+    most repeated row, relative to that row's largest value (a
+    ``GATHER`` line).  ``F.embedding``'s must be within one bf16 ulp of
+    the row's maximum (``2**-7``)."""
+    import torch
+    import torch.nn.functional as F
+    gen = torch.Generator(device=ids.device)
+    gen.manual_seed(seed)
+    g = torch.randn((ids.numel(), table_shape[1]), generator=gen,
+                    device=ids.device).to(torch.bfloat16)
+    w = torch.zeros(table_shape, dtype=torch.bfloat16, device=ids.device,
+                    requires_grad=True)
+    flat = ids.reshape(-1).long()
+    exact = torch.zeros(table_shape, dtype=torch.float64,
+                        device=ids.device).index_add_(0, flat, g.double())
+    counts = torch.bincount(flat)
+    top = int(counts.argmax())
+
+    def grad(fn):
+        (out,) = torch.autograd.grad(fn(w), w, g)
+        return out
+
+    rec = {"table": list(table_shape), "ids": flat.numel(),
+           "rows": int((counts > 0).sum()), "max_repeats": int(counts[top])}
+    for name, fn in (("index", lambda t: t[flat]),
+                     ("embedding", lambda t: F.embedding(flat, t))):
+        a, b = grad(fn), grad(fn)
+        rec[name] = {
+            "ms": time_ms(lambda: grad(fn)),
+            "same_bits_twice": torch.equal(a.view(torch.int16),
+                                           b.view(torch.int16)),
+            "rel_err_most_repeated_row": float(
+                (a[top].double() - exact[top]).abs().max()
+                / exact[top].abs().max())}
+    log("GATHER " + json.dumps(rec))
+    emb = rec["embedding"]
+    if not emb["same_bits_twice"] or emb["rel_err_most_repeated_row"] > \
+            2.0 ** -7:
+        raise AssertionError(f"embed_lookup's backward: {emb}")
+
+
+def train_models(dev, seed: int) -> None:
+    """Phase 12: single-device training (see the module's docstring)."""
+    import contextlib
+    import io
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import ARCHS, SHAPES, get_config, get_reduced
+    from repro_torch.configs import make_batch
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import native
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import model_init
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.train import (checkpoint, init_train_state,
+                                   make_train_step)
+    from repro_torch.train.tree import key_paths, map_with_keys
+    t_part = [time.perf_counter()]
+
+    def part_done(name: str) -> None:
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        log(f"MODEL_PART train {name}: {now - t_part[0]:.1f} s")
+        t_part[0] = now
+
+    native.reset_launch_counts()
+    cfg = get_config(TRAIN_ARCH)
+    T = SHAPES["train_4k"].seq_len
+    B = TRAIN_MICROBATCHES * TRAIN_MICROBATCH_ROWS
+    run = RunConfig(model=cfg, remat=True, microbatches=TRAIN_MICROBATCHES)
+    step = make_train_step(cfg, run)
+    ds = SyntheticLM(cfg.vocab, T, B, seed=seed, device=dev)
+    batches = [ds.batch_at(i) for i in range(TRAIN_STEPS)]
+    work = os.path.join(REPO, "src", "repro_torch", "_build", "train")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    log(f"TRAIN_CUT {cfg.name}: global batch {B} of train_4k's "
+        f"{SHAPES['train_4k'].global_batch} ({TRAIN_MICROBATCHES} "
+        f"microbatches of {TRAIN_MICROBATCH_ROWS}), T {T}, remat, "
+        f"{cfg.dtype}, all {cfg.n_layers} layers at full width")
+
+    def s0():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        return init_train_state(model_init(cfg, gen)[0])
+
+    # (0) the embedding gather's backward on the run's tokens
+    gather_backward((cfg.padded_vocab, cfg.d_model),
+                    torch.stack([b["tokens"] for b in batches]), seed)
+    part_done("0 gather backward")
+
+    # (1) six steps from S0
+    state = s0()
+    state_bytes = sum(t.numel() * t.element_size()
+                      for _, t in key_paths(state))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    events, metrics = [], []
+    t0 = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        state, m = step(state, batches[i])
+        ev[1].record()
+        events.append(ev)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"non-finite loss or grad_norm: {losses} "
+                             f"{norms}")
+    med = statistics.median(step_ms[1:])
+    log("TRAIN " + json.dumps({
+        "arch": cfg.name, "dtype": cfg.dtype, "seq": T, "global_batch": B,
+        "microbatches": TRAIN_MICROBATCHES, "remat": True,
+        "parameters": sum(t.numel() for t in tree_leaves(state.params)),
+        "state_bytes": state_bytes, "loss": losses, "grad_norm": norms,
+        "lr": [float(m["lr"]) for m in metrics], "step_ms": step_ms,
+        "step_ms_median_2_6": med, "tokens_per_s": B * T / med * 1e3,
+        "run_s": run_s, "peak_bytes": torch.cuda.max_memory_allocated(),
+        "resident_bytes_before": resident}))
+    straight = state
+    del state, metrics
+    part_done("1 six steps")
+
+    # (2) three steps, save, restore into a fresh tree, three more: the
+    # straight run's bits
+    state = s0()
+    for i in range(TRAIN_CKPT_AT):
+        state, _ = step(state, batches[i])
+    ckdir = os.path.join(work, "ckpt")
+    free = shutil.disk_usage(work).free
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stepdir = checkpoint.save(state, ckdir, step=TRAIN_CKPT_AT)
+    save_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(stepdir, f))
+                 for f in os.listdir(stepdir))
+    fresh = map_with_keys(lambda _, t: torch.empty_like(t), state)
+    del state
+    t0 = time.perf_counter()
+    state, at = checkpoint.restore(fresh, ckdir)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    del fresh
+    if at != TRAIN_CKPT_AT:
+        raise AssertionError(f"restored step {at}")
+    log("CHECKPOINT " + json.dumps({
+        "bytes": nbytes, "state_bytes": state_bytes, "save_s": save_s,
+        "restore_s": restore_s, "free_disk_bytes": free,
+        "leaves": len(key_paths(state))}))
+    shutil.rmtree(ckdir)
+    for i in range(TRAIN_CKPT_AT, TRAIN_STEPS):
+        state, _ = step(state, batches[i])
+    same_bits(f"{cfg.name} 3 + checkpoint + 3 vs 6 straight", state,
+              straight)
+    del straight
+    part_done("2 checkpoint and resume")
+
+    # (3) one step traced
+    trace_ms = time_ms(lambda: step(state, batches[0]), reps=1, warmup=0)
+    profile_path(f"train {cfg.name} one step", lambda: step(state,
+                                                            batches[0]),
+                 trace_ms, {})
+    del state
+    part_done("3 one step traced")
+
+    # (4) the ten reduced architectures, float32: a step on the card
+    # against the CPU, remat against none
+    for arch in ARCHS:
+        small = get_reduced(arch)
+        cpu_params, _ = model_init(small, seed, device="cpu")
+        batch = make_batch(small, "train_4k", seed=seed, batch_override=2,
+                           seq_override=16, device="cpu")
+        on_card = {k: v.to(dev) for k, v in batch.items()}
+        dev_params = tree_map(lambda t: t.to(dev), cpu_params)
+        one = make_train_step(small, RunConfig(model=small, remat=False))
+        want, wm = one(init_train_state(cpu_params), batch)
+        got, gm = one(init_train_state(dev_params), on_card)
+        hold_train_state(f"{arch} train step cuda vs cpu", got, gm, want, wm)
+        _, rm = make_train_step(small, RunConfig(model=small, remat=True))(
+            init_train_state(dev_params), on_card)
+        hold(f"{arch} remat loss", abs(float(rm["loss"]) - float(gm["loss"])),
+             1e-5)
+    small = get_reduced("smollm-135m")
+    params, _ = model_init(small, seed, device=dev)
+    batch = make_batch(small, "train_4k", seed=seed, batch_override=4,
+                       seq_override=16, device=dev)
+    s1, _ = make_train_step(small, RunConfig(model=small, remat=False))(
+        init_train_state(params), batch)
+    s2, _ = make_train_step(small, RunConfig(
+        model=small, remat=False, microbatches=2))(init_train_state(params),
+                                                   batch)
+    hold("smollm-135m microbatches 2 vs 1 params", max(
+        float((a - b).abs().max()) for a, b in zip(
+            tree_leaves(s1.params), tree_leaves(s2.params))), 5e-3)
+    part_done("4 reduced architectures")
+
+    # (5) the training driver twice: the second run resumes
+    argv = ["--arch", "smollm-135m", "--reduced", "--steps", "12",
+            "--ckpt-every", "5", "--ckpt-dir", os.path.join(work, "driver")]
+    outs = []
+    for _ in range(2):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            launch_train.main(argv)
+        outs.append(buf.getvalue())
+        log("TRAIN_DRIVER " + json.dumps(outs[-1].splitlines()))
+    if "resumed" in outs[0] or "resumed at 10" not in outs[1]:
+        raise AssertionError(f"launch.train did not resume: {outs}")
+    shutil.rmtree(work)
+    counts = native.launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"training launched kernels of this package: "
+                             f"{counts}")
+    part_done("5 launch.train")
+
+
 def engine_kernels(backend: str, fused: bool = False) -> tuple:
     """The kernels a plan on ``backend`` launches (a tuple inside: any
     one of its stems): the ``torch`` engine's segment sums run K4c."""
@@ -2556,6 +2872,10 @@ def main(argv=None) -> int:
     # -- 11. the model stack and its server: granite-moe-1b at full width #
     serve_models(dev, args.seed)
     phase_done("11 serve")
+
+    # -- 12. single-device training: granite-moe-1b at full width ------ #
+    train_models(dev, args.seed)
+    phase_done("12 train")
 
     missing = [s for s, n in drv.launches.items() if n == 0]
     if missing:

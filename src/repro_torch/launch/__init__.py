@@ -1,3 +1,3 @@
-"""Launch entry points (the JAX package's ``repro.launch``): so far only
-the serving CLI, ``serve``.  The mesh, dry-run, report, roofline and
-training entry points come with later slices."""
+"""Launch entry points (the JAX package's ``repro.launch``): the serving
+CLI, ``serve``, and the one-device training driver, ``train``.  The mesh,
+dry-run, report and roofline entry points come with later slices."""

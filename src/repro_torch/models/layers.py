@@ -77,7 +77,12 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, dtype):
 
 
 def embed_lookup(p, ids):
-    return p["w"][ids]
+    """The rows of ``p["w"]`` at ``ids``.  ``F.embedding`` gathers what
+    ``p["w"][ids]`` does; its backward sums each row's duplicates in
+    partial segments, where indexing's backward walks a row's duplicates
+    one after another (a zipf token stream repeats a few ids thousands
+    of times)."""
+    return F.embedding(ids, p["w"])
 
 
 def norm_init(kind: str, d: int, dtype, device=None):

@@ -18,8 +18,11 @@ Every scatter here has a fixed result whatever order a device applies it
 in: a dispatch slot has one writer (the overflow row ``E*C`` is thrown
 away), the combine sums each token's ``top_k`` contributions along an
 axis instead of scatter-adding them, and expert loads are integer counts.
-``top_k`` breaks ties by the lower expert index, as ``jax.lax.top_k``
-does.
+So has the backward: the dispatch's token rows are an expand (its
+backward sums over ``top_k``), and the combine's gather is
+``F.embedding`` with the overflow row as its padding index (each other
+row is read once).  ``top_k`` breaks ties by the lower expert index, as
+``jax.lax.top_k`` does.
 """
 from __future__ import annotations
 
@@ -200,21 +203,24 @@ def _apply_grouped(p, m: MoEConfig, x2d, gate, idx, C):
     N, D = x2d.shape
     E, k = m.n_experts, idx.shape[1]
     pos = _slot_positions(idx, E, C)                    # (N,k)
-    token = torch.arange(N, device=x2d.device)[:, None].expand(N, k)
-    token = token.reshape(-1)
     expert = idx.reshape(-1)
     slot = pos.reshape(-1)
     w = gate.reshape(-1).to(x2d.dtype)
     valid = slot >= 0
     dst = expert * C + slot.clamp(0, C - 1)             # (N*k,) slot addr
     dst = torch.where(valid, dst, E * C)                # overflow -> dump row
-    # dispatch: copy token rows into (E*C (+1), D); a slot has one writer,
-    # the dump row (any of its writers) is dropped
+    # dispatch: copy token rows (each repeated for its k choices: an
+    # expand, whose backward sums over k) into (E*C (+1), D); a slot has
+    # one writer, the dump row (any of its writers) is dropped
+    rows = x2d[:, None].expand(N, k, D).reshape(N * k, D)
     xe = x2d.new_zeros((E * C + 1, D)).index_copy_(
-        0, dst, x2d[token] * valid[:, None].to(x2d.dtype))
+        0, dst, rows * valid[:, None].to(x2d.dtype))
     xe3 = shard_activation(xe[:-1].reshape(E, C, D), "ecd")
     ye = shard_activation(_expert_ffn(p, xe3), "ecd").reshape(E * C, D)
-    # combine: gather slots back per (token, choice), weight, sum over k
+    # combine: gather slots back per (token, choice), weight, sum over k;
+    # the gather's backward adds nothing into the dump row (its padding
+    # index) and sums any other row's one use
     ye_pad = torch.cat([ye, ye.new_zeros((1, D))], 0)
-    contrib = ye_pad[dst] * (w * valid.to(x2d.dtype))[:, None]
+    contrib = F.embedding(dst, ye_pad, padding_idx=E * C) * (
+        w * valid.to(x2d.dtype))[:, None]
     return contrib.reshape(N, k, D).sum(1)

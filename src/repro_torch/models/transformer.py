@@ -19,6 +19,7 @@ import dataclasses
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import replicate, shard_activation
@@ -171,10 +172,18 @@ def _stack_init(gen: torch.Generator, cfg, plan: LayerPlan, dtype):
 
 
 def _stack_apply(p, cfg, plan: LayerPlan, x, positions, caches=None,
-                 update_slice=None, enc_out=None, train: bool = True):
+                 update_slice=None, enc_out=None, remat: bool = True,
+                 train: bool = True):
     """Apply head + the repeating groups (a Python loop over the stacked
     group axis) + tail.  ``caches`` mirrors the param structure; returns
-    (x, new_caches, aux_sum)."""
+    (x, new_caches, aux_sum).
+
+    ``remat`` recomputes each group's activations in the backward pass
+    (``torch.utils.checkpoint``, where the reference puts
+    ``jax.checkpoint``), and only while autograd records (grad mode on
+    and an input that requires grad): serving runs as it would without
+    it.  The reference's ``unroll`` has no counterpart: the loop here is
+    already unrolled."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches: dict[str, Any] = {"head": [], "tail": []}
     for i, (kind, ffn) in enumerate(plan.head):
@@ -184,24 +193,38 @@ def _stack_apply(p, cfg, plan: LayerPlan, x, positions, caches=None,
         new_caches["head"].append(ns)
         aux_total = aux_total + aux
 
+    def group_body(x, aux_total, params_g, cache_g):
+        new_cache_g = {}
+        for j, (kind, ffn) in enumerate(plan.group):
+            st = None if cache_g is None else cache_g[f"b{j}"]
+            x, ns, aux = block_apply(kind, params_g[f"b{j}"], cfg, x,
+                                     positions, st, update_slice, enc_out,
+                                     ffn, train)
+            # a block without state leaves a 0 in the stacked caches, as
+            # the reference's scan does
+            new_cache_g[f"b{j}"] = ns if ns is not None else torch.zeros(
+                (), dtype=torch.int32, device=x.device)
+            aux_total = aux_total + aux
+        return x, aux_total, new_cache_g
+
     new_caches["scan"] = None
     if plan.n_groups:
+        leaves = L.tree_leaves(p["scan"])
+        recompute = remat and torch.is_grad_enabled() and any(
+            t.requires_grad for t in [x, enc_out, *leaves] if t is not None)
+        # one unbind a leaf: its backward stacks the groups' grads once
+        # (indexing each group would add a full-size zero grad a group)
+        groups = [t.unbind(0) for t in leaves]
         new_scan_list = []
         for g in range(plan.n_groups):
-            params_g = L.tree_map(lambda a: a[g], p["scan"])
+            it = iter([t[g] for t in groups])
+            params_g = L.tree_map(lambda _: next(it), p["scan"])
             cache_g = (None if caches is None else
                        L.tree_map(lambda a: a[g], caches["scan"]))
-            new_cache_g = {}
-            for j, (kind, ffn) in enumerate(plan.group):
-                st = None if cache_g is None else cache_g[f"b{j}"]
-                x, ns, aux = block_apply(kind, params_g[f"b{j}"], cfg, x,
-                                         positions, st, update_slice,
-                                         enc_out, ffn, train)
-                # a block without state leaves a 0 in the stacked caches,
-                # as the reference's scan does
-                new_cache_g[f"b{j}"] = ns if ns is not None else torch.zeros(
-                    (), dtype=torch.int32, device=x.device)
-                aux_total = aux_total + aux
+            args = (x, aux_total, params_g, cache_g)
+            x, aux_total, new_cache_g = (
+                checkpoint(group_body, *args, use_reentrant=False)
+                if recompute else group_body(*args))
             new_scan_list.append(new_cache_g)
         if caches is not None:
             new_caches["scan"] = L.tree_map(
@@ -258,10 +281,11 @@ def _enc_plan(cfg: ModelConfig) -> LayerPlan:
                      n_groups=cfg.n_enc_layers, tail=())
 
 
-def _encode(p, cfg: ModelConfig, enc_frames):
+def _encode(p, cfg: ModelConfig, enc_frames, remat: bool = True):
     B, S = enc_frames.shape[:2]
     pos = torch.arange(S, device=enc_frames.device).expand(B, S)
-    x, _, _ = _stack_apply(p["enc"], cfg, _enc_plan(cfg), enc_frames, pos)
+    x, _, _ = _stack_apply(p["enc"], cfg, _enc_plan(cfg), enc_frames, pos,
+                           remat=remat)
     return L.apply_norm(cfg.norm, p["enc_norm"], x)
 
 
@@ -283,20 +307,24 @@ def _embed_inputs(p, cfg: ModelConfig, batch):
     return x
 
 
-def forward(p, cfg: ModelConfig, batch, train: bool = False):
+def forward(p, cfg: ModelConfig, batch, remat: bool = True,
+            train: bool = False):
     """Full-sequence forward: returns (logits, aux_loss).
 
     ``train=True`` (set by :func:`loss_fn`) enables capacity-bounded MoE
     dispatch; the default is inference semantics (dropless MoE), which keeps
-    a batched forward consistent with prefill + decode_step."""
+    a batched forward consistent with prefill + decode_step.  ``remat``
+    recomputes each stacked group in the backward pass
+    (:func:`_stack_apply`)."""
     x = shard_activation(_embed_inputs(p, cfg, batch), "btd")
     B, T = batch["tokens"].shape
     positions = torch.arange(T, device=x.device).expand(B, T)
     enc_out = None
     if cfg.encdec:
-        enc_out = _encode(p, cfg, batch["enc_frames"].to(x.dtype))
+        enc_out = _encode(p, cfg, batch["enc_frames"].to(x.dtype),
+                          remat=remat)
     x, _, aux = _stack_apply(p["dec"], cfg, layer_plan(cfg), x, positions,
-                             enc_out=enc_out, train=train)
+                             enc_out=enc_out, remat=remat, train=train)
     x = L.apply_norm(cfg.norm, p["final_norm"], x)
     return _logits(p, cfg, x), aux
 
@@ -316,14 +344,21 @@ def _logits(p, cfg: ModelConfig, x):
     return logits
 
 
-def loss_fn(p, cfg: ModelConfig, batch):
-    """Next-token cross-entropy + 0.01 x the MoE load-balance loss
-    (forward only: the gradient comes with the training slice)."""
-    logits, aux = forward(p, cfg, batch, train=True)
+def loss_fn(p, cfg: ModelConfig, batch, remat: bool = True):
+    """Next-token cross-entropy + 0.01 x the MoE load-balance loss:
+    ``(loss, {"ce", "aux"})``, differentiable in ``p``'s leaves (the train
+    step takes ``torch.autograd.grad`` of it).
+
+    The gold logit is a masked sum over the vocabulary columns, as the
+    reference's: its backward is an element-wise product, where
+    ``torch.gather``'s is a ``scatter_add`` whose order on the card is not
+    fixed."""
+    logits, aux = forward(p, cfg, batch, remat=remat, train=True)
     logits = logits[:, :-1].float()
     targets = batch["labels"][:, 1:].long()
     logz = torch.logsumexp(logits, -1)
-    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    cols = torch.arange(logits.shape[-1], device=logits.device)
+    gold = torch.where(cols == targets[..., None], logits, 0.0).sum(-1)
     ce = (logz - gold).mean()
     return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 

@@ -1432,3 +1432,125 @@ def test_server_on_the_card_serves_the_cpu_servers_requests(cuda, arch):
         gap = rows.max(-1).values - rows[torch.arange(4), r.out]
         assert float(gap.max()) <= 1e-4 * max(1.0,
                                               float(rows.abs().max()))
+
+
+# --------------------------------------------------------------------------- #
+# single-device training on the card (no kernel of this package either)
+# --------------------------------------------------------------------------- #
+def _train_pair(arch, cuda, dtype="float32"):
+    from repro_torch.configs import get_reduced, make_batch
+    from repro_torch.models import model_init
+    from repro_torch.models.layers import tree_map
+    from repro_torch.train import init_train_state
+    cfg = dataclasses.replace(get_reduced(arch), dtype=dtype)
+    cpu, _ = model_init(cfg, 0, device="cpu")
+    batch = make_batch(cfg, "train_4k", batch_override=2, seq_override=16,
+                       device="cpu")
+    return (cfg, init_train_state(cpu), batch,
+            init_train_state(tree_map(lambda t: t.to(cuda), cpu)),
+            {k: v.to(cuda) for k, v in batch.items()})
+
+
+def _same_state_bits(a, b):
+    from repro_torch.train.tree import key_paths
+    for (k, x), (_, y) in zip(key_paths(a), key_paths(b)):
+        if x.dtype == torch.bfloat16:
+            x, y = x.view(torch.int16), y.view(torch.int16)
+        assert x.dtype == y.dtype and torch.equal(x, y), k
+
+
+@pytest.mark.parametrize("arch,k", [(a, 1) for a in MODEL_ARCHS]
+                         + [("granite-moe-1b-a400m", 2),
+                            ("smollm-135m", 2)])
+def test_train_step_on_the_card_matches_the_cpu(cuda, arch, k):
+    """One ``make_train_step`` step (float32, ``remat=False``) on the card
+    against the CPU from the same state and batch: loss, lr and
+    grad_norm within ``1e-5`` relative; ``m`` and ``v`` within ``2e-4 ·
+    max|cpu| + 1e-7`` a leaf; params within ``2·lr₁ + 1e-6 · max|p|``
+    (the first AdamW step moves a param by about ``lr·sign(g)``)."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.train import make_train_step
+    from repro_torch.train.tree import key_paths
+    cfg, cpu, batch, dev, on_card = _train_pair(arch, cuda)
+    step = make_train_step(cfg, RunConfig(model=cfg, remat=False,
+                                          microbatches=k))
+    want, wm = step(cpu, batch)
+    got, gm = step(dev, on_card)
+    for name in ("loss", "lr", "grad_norm"):
+        g, w = float(gm[name]), float(wm[name])
+        assert abs(g - w) <= 1e-5 * abs(w), (name, g, w)
+    lr1 = float(wm["lr"])
+    for tree, bound in ((lambda s: s.opt.m, None), (lambda s: s.opt.v, None),
+                        (lambda s: s.params, 2 * lr1)):
+        for (key, a), (_, b) in zip(key_paths(tree(got)),
+                                    key_paths(tree(want))):
+            b = b.double()
+            scale = float(b.abs().max()) if b.numel() else 0.0
+            tol = (2e-4 * scale + 1e-7 if bound is None
+                   else bound + 1e-6 * scale)
+            err = float((a.cpu().double() - b).abs().max()) if b.numel() \
+                else 0.0
+            assert err <= tol, (key, err, tol)
+    assert int(got.opt.step) == 1 and got.opt.step.device.type == "cuda"
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "smollm-135m",
+                                  "deepseek-v2-236b"])
+def test_train_step_on_the_card_is_bit_identical_twice(cuda, arch):
+    """The same step twice from the same state (bf16 params, remat, two
+    microbatches): the same bits.  The backward has no atomics whose
+    order could move a sum (the gold logit is a masked sum, not
+    ``torch.gather``, whose backward scatter-adds)."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.train import make_train_step
+    cfg, _, _, dev, on_card = _train_pair(arch, cuda, "bfloat16")
+    step = make_train_step(cfg, RunConfig(model=cfg, remat=True,
+                                          microbatches=2))
+    a, am = step(dev, on_card)
+    b, bm = step(dev, on_card)
+    _same_state_bits(a, b)
+    for name in am:
+        assert torch.equal(am[name], bm[name]), name
+
+
+def test_bf16_checkpoint_round_trip_on_the_card(cuda, tmp_path):
+    """A bf16 training state on the card saved and restored into a fresh
+    tree on the card: the same bits, dtypes and devices."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.train import checkpoint, make_train_step
+    from repro_torch.train.tree import key_paths, map_with_keys
+    cfg, _, _, dev, on_card = _train_pair("granite-moe-1b-a400m", cuda,
+                                          "bfloat16")
+    state, _ = make_train_step(cfg, RunConfig(model=cfg))(dev, on_card)
+    checkpoint.save(state, str(tmp_path), step=1)
+    fresh = map_with_keys(lambda _, t: torch.zeros_like(t), state)
+    restored, at = checkpoint.restore(fresh, str(tmp_path))
+    assert at == 1
+    _same_state_bits(state, restored)
+    assert {t.device.type for _, t in key_paths(restored)} == {"cuda"}
+    assert restored.params["embed"]["w"].dtype == torch.bfloat16
+
+
+def test_embed_lookup_backward_on_a_zipf_stream(cuda):
+    """``embed_lookup``'s bf16 backward on a token stream that repeats a
+    few ids thousands of times (``SyntheticLM``'s): the same bits twice,
+    and each row within one bf16 ulp of its largest value of a float64
+    sum (indexing's backward, which sums a row's repeats one after
+    another, misses this by an order of magnitude)."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models.layers import embed_lookup
+    ids = SyntheticLM(4096, 1024, 4, device=cuda).batch_at(0)["tokens"]
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    g = torch.randn(ids.shape + (256,), generator=gen, device=cuda).to(
+        torch.bfloat16)
+    w = torch.zeros((4096, 256), dtype=torch.bfloat16, device=cuda,
+                    requires_grad=True)
+    (a,) = torch.autograd.grad(embed_lookup({"w": w}, ids), w, g)
+    (b,) = torch.autograd.grad(embed_lookup({"w": w}, ids), w, g)
+    assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+    exact = torch.zeros((4096, 256), dtype=torch.float64,
+                        device=cuda).index_add_(0, ids.reshape(-1).long(),
+                                                g.reshape(-1, 256).double())
+    err = (a.double() - exact).abs().amax(-1)
+    assert bool((err <= 2.0 ** -7 * exact.abs().amax(-1)).all())

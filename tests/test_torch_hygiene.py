@@ -145,6 +145,54 @@ def test_the_model_stack_is_checked_by_the_import_scan():
         assert mod in scanned, mod
 
 
+def test_the_training_slice_is_checked_by_the_import_scan():
+    """The static scan walks the training slice's modules too."""
+    scanned = {os.path.relpath(p, PORT) for p in _port_sources()}
+    for mod in ("train/__init__.py", "train/optimizer.py",
+                "train/train_step.py", "train/checkpoint.py",
+                "train/fault.py", "train/tree.py", "data/__init__.py",
+                "data/pipeline.py", "launch/train.py"):
+        assert mod in scanned, mod
+
+
+def test_fresh_interpreter_trains_without_jax_or_repro(tmp_path):
+    """A train step, a checkpoint round trip and the training driver on
+    the CPU import neither JAX nor the JAX package."""
+    code = f"""
+import sys
+import torch
+from repro_torch.configs import get_reduced
+from repro_torch.configs.base import RunConfig
+from repro_torch.data import SyntheticLM
+from repro_torch.launch import train
+from repro_torch.models import model_init
+from repro_torch.train import (checkpoint, init_train_state,
+                               make_train_step)
+cfg = get_reduced("granite-moe-1b-a400m")
+state = init_train_state(model_init(cfg, 0, device="cpu")[0])
+ds = SyntheticLM(cfg.vocab, 8, 2, device="cpu")
+state, m = make_train_step(cfg, RunConfig(model=cfg, microbatches=2))(
+    state, ds.batch_at(0))
+assert torch.isfinite(m["loss"]) and int(state.opt.step) == 1
+checkpoint.save(state, {str(tmp_path / "c")!r}, step=1)
+back, at = checkpoint.restore(state, {str(tmp_path / "c")!r})
+assert at == 1 and torch.equal(back.opt.m["embed"]["w"],
+                               state.opt.m["embed"]["w"])
+train.main(["--reduced", "--steps", "2", "--device", "cpu",
+            "--ckpt-dir", {str(tmp_path / "d")!r}])
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not bad, bad
+print("CLEAN")
+"""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(REPO, "src")
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "CLEAN" in out.stdout
+
+
 def test_every_reference_core_name_resolves_in_the_port():
     import repro.core as jcore
     import repro_torch.core as tcore
