@@ -148,6 +148,30 @@ any failure exits non-zero):
    (params within ``5e-3``); (5) ``launch.train.main`` twice over one
    checkpoint directory: the second run prints ``resumed at 10``.
    ``MODEL_PART train`` lines time the parts.
+13. Sharded training (``distributed/sharding.py``, ``launch/mesh.py``,
+   the sharded ``make_train_step``, ``launch/train.py --mesh``), which
+   launches none of the kernels above: granite-moe-1b-a400m at full
+   width in bf16 from ``--seed`` over a ``(2, 2)`` mesh of ``("data",
+   "model")``, four gloo ranks on cuda:0 (NCCL refuses two ranks on one
+   card), global batch 4 (two rows a data rank), ``train_4k``'s T cut to
+   1,024 (a ``SHARD_CUT`` line), three steps.  (1) The same three steps
+   on one device; its state saved leaf by leaf.  (2) Each rank builds
+   the mesh (each collective the step calls run once on CUDA tensors
+   through gloo and checked, ``gloo_cuda_probe``), places the params by ``tree_sharding``, steps inside
+   ``mesh_context`` (CUDA-event step ms between barriers, the second
+   step's collectives counted by ``CommDebugMode`` and
+   ``roofline.CollectiveBytes``) and holds its local shards to the
+   one-device state's (loss and grad_norm within ``2**-8`` relative;
+   params within ``2**-7 |want| + 2 Σ lr`` a value, which holds the
+   placement: three steps move a bf16 weight less than one ulp; ``m``
+   and ``v`` within ``2**-4`` of each leaf's norm, which hold the
+   gradient), then runs ``launch.train
+   --mesh 2x2`` (smollm-135m reduced) six steps straight and three, a
+   checkpoint, three more: bit for bit.  Meanwhile the parent dry-runs
+   the same cell on a fake ``(2, 2)`` mesh (``launch.dryrun.lower_cell``)
+   and each rank's collective bytes must equal its count.  ``SHARD``
+   lines: per rank the routes (all direct), local state bytes, peak, step ms,
+   collectives, worst error over tolerance.
 
 Every path of phases 2-7 is timed (CUDA events, median of 10 after 2 warm-ups) and its
 peak memory read.  Then one counted run, with the launch counts zeroed
@@ -261,6 +285,12 @@ TRAIN_MICROBATCHES = 2
 TRAIN_MICROBATCH_ROWS = 2        # global batch 4 of train_4k's 256
 TRAIN_STEPS = 6
 TRAIN_CKPT_AT = 3
+SHARD_ARCH = "granite-moe-1b-a400m"
+SHARD_MESH = (2, 2)                # (data, model), four gloo ranks
+SHARD_BATCH = 4                    # global: two rows a data rank
+SHARD_T = 1024                     # train_4k's 4,096 cut: four ranks share
+SHARD_STEPS = 3                    # one card's memory
+SHARD_TIMEOUT_S = 300
 # kernel stem -> its name in a profiler trace
 TRACE_NAMES = {stem: f"spttn::{stem}_kernel<" for stem in (
     "reduce", "product", "splitk", "combine", "chain", "mttkrp", "ttmc",
@@ -2014,6 +2044,413 @@ def train_models(dev, seed: int) -> None:
     part_done("5 launch.train")
 
 
+def leaf_file(work: str, key: str) -> str:
+    return os.path.join(work, "single", key.replace("/", "__") + ".npy")
+
+
+def save_leaves(tree, work: str) -> None:
+    """Every leaf of a state as a ``.npy`` file (bf16 as its bits)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.train.tree import key_paths
+    os.makedirs(os.path.join(work, "single"), exist_ok=True)
+    for k, t in key_paths(tree):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        np.save(leaf_file(work, k), t.numpy())
+
+
+def saved_shard(work: str, key: str, like, sharding):
+    """This rank's shard of a saved full leaf (read from a memory map:
+    only the shard's bytes), on ``like``'s device and dtype."""
+    import numpy as np
+    import torch
+    arr = np.load(leaf_file(work, key), mmap_mode="r")
+    coord = sharding.mesh.get_coordinate()
+    for i, d in sharding.sharded_dims():
+        arr = np.array_split(arr, sharding.mesh.shape[i], axis=d)[coord[i]]
+    t = torch.from_numpy(np.array(arr))      # a writable copy
+    if like.dtype == torch.bfloat16:
+        t = t.view(torch.bfloat16)
+    return t.to(like.device)
+
+
+def host_memory() -> str:
+    """This process's resident and peak resident memory, and the host's
+    available memory (from ``/proc``)."""
+    fields = {}
+    for path, keys in (("/proc/self/status", ("VmRSS", "VmHWM")),
+                       ("/proc/meminfo", ("MemAvailable",))):
+        try:
+            with open(path) as fh:
+                for ln in fh:
+                    k, _, v = ln.partition(":")
+                    if k in keys:
+                        fields[k] = v.strip()
+        except OSError:
+            pass
+    return " ".join(f"{k} {v}" for k, v in fields.items())
+
+
+def gloo_cuda_probe(world: int) -> dict:
+    """Each collective the sharded step calls, once on small CUDA tensors
+    over the default group, its result checked.  The step calls them
+    directly: a collective gloo refuses raises here, on every rank."""
+    import torch
+    import torch.distributed as dist
+    rank = dist.get_rank()
+    ar = torch.arange(2 * world, device="cuda", dtype=torch.bfloat16)
+    x = ar[2 * rank:2 * rank + 2].clone()
+    cases = {"all_gather_into_tensor": (x.new_empty(2 * world), x, ar),
+             "reduce_scatter_tensor": (x.new_empty(2), ar,
+                                       world * ar[2 * rank:2 * rank + 2]),
+             "all_reduce": (x.clone(), None, ar.reshape(world, 2).sum(0))}
+    for op, (out, inp, want) in cases.items():
+        if op == "all_reduce":
+            dist.all_reduce(out)
+        else:
+            getattr(dist, op)(out, inp)
+        if not torch.equal(out, want):
+            raise AssertionError(f"gloo {op} on CUDA tensors gave "
+                                 f"{out.tolist()}, not {want.tolist()}")
+    return dict.fromkeys(cases, "direct")
+
+
+def shard_rank(rank: int, world: int, work: str) -> None:
+    """Phase 13, one rank of ``world`` on the card (gloo): the mesh (its
+    collectives probed on CUDA tensors), granite-moe-1b's params placed by
+    ``tree_sharding``, ``SHARD_STEPS`` sharded steps (step ms between
+    barriers, the second step's collectives counted), each local shard
+    held to the one-device run's, then ``launch.train --mesh 2x2``
+    straight and resumed.  What it measured goes to
+    ``work/rank<r>.json``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor.debug import CommDebugMode
+    sys.path.insert(0, os.path.join(REPO, "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.kernels import native
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.roofline import CollectiveBytes
+    from repro_torch.models import model_init
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train.tree import key_paths
+    torch.cuda.set_device(0)
+    torch.set_num_threads(1)      # four ranks and the parent share 8 cores
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(os.path.join(work, "single", "meta.json")) as fh:
+        meta = json.load(fh)
+    dist.init_process_group(
+        "gloo", init_method="file://" + os.path.join(work, "store"),
+        world_size=world, rank=rank,
+        timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
+    t_start = time.perf_counter()
+    card_free_min = [None]
+
+    def mark(stage: str) -> None:
+        # progress, so the parent can say where a failed rank stopped
+        with open(os.path.join(work, f"rank{rank}.log"), "a") as fh:
+            free, _ = torch.cuda.mem_get_info()
+            card_free_min[0] = min(free, card_free_min[0] or free)
+            fh.write(f"{time.perf_counter() - t_start:.1f} s {stage}: "
+                     f"allocated {torch.cuda.memory_allocated()} peak "
+                     f"{torch.cuda.max_memory_allocated()} reserved peak "
+                     f"{torch.cuda.max_memory_reserved()} card free "
+                     f"{free}; host {host_memory()}\n")
+
+    try:
+        native.reset_launch_counts()
+        mesh = make_host_mesh(SHARD_MESH[1], "cuda")
+        if tuple(mesh.shape) != SHARD_MESH:
+            raise AssertionError(f"mesh {mesh} is not {SHARD_MESH}")
+        rec = {"rank": rank, "coord": list(mesh.get_coordinate()),
+               "routes": gloo_cuda_probe(world)}
+        mark(f"mesh, routes {rec['routes']}")
+        cfg = get_config(SHARD_ARCH)
+        rules = SH.default_rules(False, "train")
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(meta["seed"])
+        params, specs = model_init(cfg, gen)
+        dparams = SH.distribute_params(params, SH.tree_sharding(
+            params, specs, rules, mesh))
+        del params
+        torch.cuda.empty_cache()
+        state = init_train_state(dparams)
+        del dparams
+        mark("state")
+        rec["local_state_bytes"] = sum(
+            (t.to_local() if SH.is_dtensor(t) else t).numel()
+            * t.element_size() for _, t in key_paths(state))
+        ds = SyntheticLM(cfg.vocab, SHARD_T, SHARD_BATCH, seed=meta["seed"],
+                         device="cuda")
+        step = make_train_step(cfg, RunConfig(model=cfg, remat=True))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rec["resident_bytes"] = torch.cuda.memory_allocated()
+        metrics, ms = [], []
+        with SH.mesh_context(mesh, rules):
+            for i in range(SHARD_STEPS):
+                counting = i == 1
+                dist.barrier()
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                with CommDebugMode() as cdm, CollectiveBytes() as coll:
+                    ev[0].record()
+                    state, m = step(state, ds.batch_at(i))
+                    ev[1].record()
+                ev[1].synchronize()
+                mark(f"step {i}")
+                dist.barrier()
+                ms.append(ev[0].elapsed_time(ev[1]))
+                metrics.append({k: float(v) for k, v in m.items()})
+                if counting:
+                    rec["collectives"] = coll.summary()
+                    rec["comm_debug_ops"] = cdm.get_total_counts()
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+        rec["peak_reserved_bytes"] = torch.cuda.max_memory_reserved()
+        rec["step_ms"] = ms
+        rec["metrics"] = metrics
+        # each local shard against the one-device run's (PERF.md §2):
+        # params 2**-7 |want| + 2 Σ lr a value, m, v by the leaf's
+        # relative norm.  Three steps move a bf16 weight by ~Σ lr, below
+        # one ulp, so the params bound holds the placement (the right
+        # shard of the right leaf), not the update: m and v, float32,
+        # hold the sharded gradient
+        lr_sum = sum(m["lr"] for m in metrics)
+        worst = {"params": 0.0, "m": 0.0, "v": 0.0}
+        for part, tree in (("params", state.params), ("m", state.opt.m),
+                           ("v", state.opt.v)):
+            prefix = {"params": "0", "m": "1/0", "v": "1/1"}[part]
+            for k, t in key_paths(tree):
+                local = t.to_local()
+                want = saved_shard(work, f"{prefix}/{k}", local,
+                                   SH.sharding_of(t)).double()
+                got = local.double()
+                if part == "params":
+                    tol = 2.0 ** -7 * want.abs() + 2 * lr_sum
+                    err = float(((got - want).abs() / tol).max())
+                else:
+                    err = float((got - want).norm() / want.norm().clamp(
+                        min=1e-30)) / (2.0 ** -4)
+                worst[part] = max(worst[part], err)
+        rec["worst_err/tol"] = worst
+        rec["launches"] = {k: n for k, n in native.launch_counts().items()
+                           if n}
+        mark("held to one device")
+        del state
+        torch.cuda.empty_cache()
+        # launch.train --mesh 2x2: six steps straight; three, a
+        # checkpoint, three more
+        argv = ["--arch", "smollm-135m", "--reduced", "--mesh", "2x2"]
+        outs = []
+
+        def driver(extra):
+            import contextlib
+            import io
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                st = launch_train.main(argv + extra)
+            outs.append(buf.getvalue())
+            return st
+
+        straight = driver(["--steps", "6", "--ckpt-every", "100",
+                           "--ckpt-dir", os.path.join(work, "straight")])
+        ck = os.path.join(work, "resume")
+        driver(["--steps", "3", "--ckpt-every", "3", "--ckpt-dir", ck])
+        resumed = driver(["--steps", "6", "--ckpt-every", "3",
+                          "--ckpt-dir", ck])
+        same = 0
+        for (k, a), (_, b) in zip(key_paths(straight), key_paths(resumed)):
+            a = a.to_local() if SH.is_dtensor(a) else a
+            b = b.to_local() if SH.is_dtensor(b) else b
+            if a.dtype == torch.bfloat16:
+                a, b = a.view(torch.int16), b.view(torch.int16)
+            if not torch.equal(a, b):
+                raise AssertionError(f"rank {rank}: resumed leaf {k} "
+                                     f"differs from the straight run's")
+            same += 1
+        rec["card_free_min_bytes"] = card_free_min[0]
+        rec["host"] = host_memory()
+        rec["resume"] = {"leaves_bit_for_bit": same,
+                         "driver": [o.splitlines() for o in outs]}
+        if "resumed at 3" not in outs[2]:
+            raise AssertionError(f"rank {rank}: the sharded driver did not "
+                                 f"resume: {outs[2]}")
+        with open(os.path.join(work, f"rank{rank}.json"), "w") as fh:
+            json.dump(rec, fh)
+    except Exception:
+        import traceback
+        mark("failed")
+        with open(os.path.join(work, f"rank{rank}.err"), "w") as fh:
+            fh.write(traceback.format_exc())
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def rank_reports(work: str, world: int) -> str:
+    """Each rank's progress and error files, for a failed phase."""
+    out = []
+    for r in range(world):
+        for ext in ("log", "err"):
+            path = os.path.join(work, f"rank{r}.{ext}")
+            if os.path.exists(path):
+                with open(path) as fh:
+                    out.append(f"--- rank {r} {ext}\n{fh.read()}")
+    return "\n".join(out)
+
+
+def sharded_training(dev, seed: int) -> None:
+    """Phase 13: granite-moe-1b-a400m over a ``SHARD_MESH`` mesh of four
+    gloo ranks on the card, held to the same steps on one device (see
+    the module's docstring)."""
+    import shutil
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs import SHAPES, ShapeConfig, get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import native
+    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.models import model_init
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train.tree import key_paths
+    cfg = get_config(SHARD_ARCH)
+    world = SHARD_MESH[0] * SHARD_MESH[1]
+    work = os.path.join(REPO, "src", "repro_torch", "_build", "sharded")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(os.path.join(work, "single"))
+    log(f"SHARD_CUT {cfg.name}: mesh {SHARD_MESH} of (data, model), "
+        f"{world} gloo ranks on cuda:0, global batch {SHARD_BATCH} of "
+        f"train_4k's {SHAPES['train_4k'].global_batch}, T {SHARD_T} of "
+        f"{SHAPES['train_4k'].seq_len}, {SHARD_STEPS} steps, remat, "
+        f"{cfg.dtype}, all {cfg.n_layers} layers at full width")
+
+    # (1) the same steps on one device; its state on disk for the ranks
+    native.reset_launch_counts()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    state = init_train_state(model_init(cfg, gen)[0])
+    step = make_train_step(cfg, RunConfig(model=cfg, remat=True))
+    ds = SyntheticLM(cfg.vocab, SHARD_T, SHARD_BATCH, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    metrics, ms = [], []
+    for i in range(SHARD_STEPS):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        state, m = step(state, ds.batch_at(i))
+        ev[1].record()
+        ev[1].synchronize()
+        ms.append(ev[0].elapsed_time(ev[1]))
+        metrics.append({k: float(v) for k, v in m.items()})
+    single = {"step_ms": ms, "metrics": metrics,
+              "peak_bytes": torch.cuda.max_memory_allocated(),
+              "state_bytes": sum(t.numel() * t.element_size()
+                                 for _, t in key_paths(state))}
+    t0 = time.perf_counter()
+    save_leaves(state, work)
+    single["save_s"] = time.perf_counter() - t0
+    with open(os.path.join(work, "single", "meta.json"), "w") as fh:
+        json.dump({"seed": seed}, fh)
+    del state, step
+    torch.cuda.empty_cache()
+    log("SHARD single " + json.dumps(single))
+
+    # (2) the ranks; meanwhile the dry run of the same cell on a fake mesh.
+    # Four ranks' caching allocators share the card: expandable segments
+    # keep each one's reserve near what it allocates
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    free, _ = torch.cuda.mem_get_info()
+    log(f"SHARD parent before spawning: allocated "
+        f"{torch.cuda.memory_allocated()} reserved "
+        f"{torch.cuda.memory_reserved()} card free {free}; host "
+        f"{host_memory()}")
+    ctx = mp.start_processes(shard_rank, args=(world, work), nprocs=world,
+                             join=False, start_method="spawn")
+    deadline = time.monotonic() + 2 * SHARD_TIMEOUT_S
+    try:
+        t0 = time.perf_counter()
+        dry = lower_cell(cfg.name, ShapeConfig(
+            "train_4k", SHARD_T, SHARD_BATCH, "train"), False,
+            cfg_override=cfg, mesh_shape=SHARD_MESH)
+        log("SHARD dryrun " + json.dumps({
+            "s": time.perf_counter() - t0, "cost": dry["cost"],
+            "memory": dry["memory"], "collectives": dry["collectives"],
+            "analytic_memory": dry["analytic_memory"]}))
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                raise AssertionError("phase 13: a rank did not finish")
+    except Exception:
+        log(rank_reports(work, world))
+        log(f"SHARD exit codes {[p.exitcode for p in ctx.processes]}; "
+            f"host {host_memory()}")
+        raise
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(work, f"rank{r}.json")) as fh:
+            ranks.append(json.load(fh))
+
+    # (3) the ranks against one device, and against the dry run
+    for rec in ranks:
+        for g, w in zip(rec["metrics"], single["metrics"]):
+            for k in ("loss", "grad_norm"):
+                hold(f"sharded rank {rec['rank']} {k}", abs(g[k] - w[k]),
+                     2.0 ** -8 * abs(w[k]))
+            hold(f"sharded rank {rec['rank']} lr", abs(g["lr"] - w["lr"]),
+                 1e-7 * abs(w["lr"]))
+        for part, worst in rec["worst_err/tol"].items():
+            hold(f"sharded rank {rec['rank']} {part} worst_err/tol", worst,
+                 1.0)
+        if rec["collectives"]["per_op_bytes"] != \
+                dry["collectives"]["per_op_bytes"]:
+            raise AssertionError(f"rank {rec['rank']}: collectives "
+                                 f"{rec['collectives']} against the dry "
+                                 f"run's {dry['collectives']}")
+        if rec["launches"]:
+            raise AssertionError(f"sharded training launched kernels of "
+                                 f"this package: {rec['launches']}")
+        line = {k: rec[k] for k in ("rank", "coord", "routes",
+                                    "local_state_bytes", "resident_bytes",
+                                    "peak_bytes", "peak_reserved_bytes",
+                                    "step_ms", "collectives",
+                                    "comm_debug_ops", "worst_err/tol",
+                                    "card_free_min_bytes", "host")}
+        line["loss"] = [m["loss"] for m in rec["metrics"]]
+        line["grad_norm"] = [m["grad_norm"] for m in rec["metrics"]]
+        line["resume_leaves_bit_for_bit"] = rec["resume"][
+            "leaves_bit_for_bit"]
+        log("SHARD " + json.dumps(line))
+    log("SHARD_DRIVER " + json.dumps(ranks[0]["resume"]["driver"]))
+    log("SHARD summary " + json.dumps({
+        "single_step_ms": single["step_ms"],
+        "sharded_step_ms_median_2_3": [statistics.median(r["step_ms"][1:])
+                                       for r in ranks],
+        "dryrun_argument_bytes": dry["memory"]["argument_size_in_bytes"],
+        "local_state_bytes": [r["local_state_bytes"] for r in ranks],
+        "single_state_bytes": single["state_bytes"],
+        "peak_bytes": [r["peak_bytes"] for r in ranks]}))
+    shutil.rmtree(work)
+
+
 def engine_kernels(backend: str, fused: bool = False) -> tuple:
     """The kernels a plan on ``backend`` launches (a tuple inside: any
     one of its stems): the ``torch`` engine's segment sums run K4c."""
@@ -2241,13 +2678,7 @@ def dist_rank(rank: int, world: int, work: str) -> None:
         grads = {"w": torch.randn((4096, 1024), generator=gen,
                                   device="cuda"),
                  "b": torch.randn(1023, generator=gen, device="cuda")}
-        try:
-            sliced = reduce_scatter_grads(grads)
-            rec["reduce_scatter"] = "cuda tensors"
-        except RuntimeError as e:      # gloo: staged through host memory
-            rec["reduce_scatter"] = f"host-staged ({str(e)[:160]})"
-            sliced = {k: v.cuda() for k, v in reduce_scatter_grads(
-                {k: v.cpu() for k, v in grads.items()}).items()}
+        sliced = reduce_scatter_grads(grads)     # gloo, CUDA tensors
         for k, g in grads.items():
             full = g.clone()
             dist.all_reduce(full)
@@ -2876,6 +3307,10 @@ def main(argv=None) -> int:
     # -- 12. single-device training: granite-moe-1b at full width ------ #
     train_models(dev, args.seed)
     phase_done("12 train")
+
+    # -- 13. sharded training: granite-moe-1b over a (2, 2) mesh -------- #
+    sharded_training(dev, args.seed)
+    phase_done("13 sharded train")
 
     missing = [s for s, n in drv.launches.items() if n == 0]
     if missing:

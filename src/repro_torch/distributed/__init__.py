@@ -13,8 +13,9 @@ The reference's names and their counterparts here:
 ``stackable_plan`` -> ``stackable_plan``;
 ``unpad_local_csf`` -> ``unpad_local_csf``;
 modules ``collectives`` -> ``collectives``, ``spttn_dist`` -> ``spttn_dist``,
-``sharding`` -> ``sharding`` (only ``replicate`` and ``shard_activation``,
-the identities outside a mesh context, so far).
+``sharding`` -> ``sharding`` (the rules and ``tree_sharding`` as DTensor
+placements, ``mesh_context``, and the gathered-weights sharded step's
+gather and batch split).
 """
 from repro_torch.distributed import collectives, sharding, spttn_dist
 from repro_torch.distributed.spttn_dist import (DIST_MODES,
@@ -29,7 +30,8 @@ from repro_torch.distributed.spttn_dist import (DIST_MODES,
                                                 unpad_local_csf)
 
 __all__ = [
-    "collectives", "sharding", "spttn_dist", "DIST_MODES", "DistributedPlanReplay",
+    "collectives", "sharding", "spttn_dist", "DIST_MODES",
+    "DistributedPlanReplay",
     "make_distributed", "make_distributed_cuda", "make_distributed_tuned",
     "partition_mesh", "partition_nonzeros", "shard_mesh_key",
     "stackable_plan", "unpad_local_csf",

@@ -1,3 +1,4 @@
 """Launch entry points (the JAX package's ``repro.launch``): the serving
-CLI, ``serve``, and the one-device training driver, ``train``.  The mesh,
-dry-run, report and roofline entry points come with later slices."""
+CLI, ``serve``; the training driver, ``train`` (one device, or sharded
+with ``--mesh`` under ``torchrun``); the meshes, ``mesh``; the dry run,
+``dryrun``, with its ``roofline`` terms and ``report`` tables."""

@@ -168,3 +168,18 @@ def stack_specs(spec):
     if isinstance(spec, dict):
         return {k: stack_specs(v) for k, v in spec.items()}
     return ("layers",) + tuple(spec)
+
+
+def abstract_init(init_fn, *args, **kwargs):
+    """Run an init under ``FakeTensorMode`` so dry-runs never allocate
+    real parameters (the reference's ``jax.eval_shape``): its tensors
+    come back fake, with shapes, dtypes and devices but no storage.  The
+    generator draws (``torch.randn(..., generator=...)``) trace like any
+    other op; a ``meta`` device would refuse a CPU generator.  Inside an
+    active ``FakeTensorMode`` the init runs in that mode."""
+    from torch._guards import detect_fake_mode
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    if detect_fake_mode() is not None:
+        return init_fn(*args, **kwargs)
+    with FakeTensorMode():
+        return init_fn(*args, **kwargs)

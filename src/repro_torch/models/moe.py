@@ -23,6 +23,17 @@ backward sums over ``top_k``), and the combine's gather is
 ``F.embedding`` with the overflow row as its padding index (each other
 row is read once).  ``top_k`` breaks ties by the lower expert index, as
 ``jax.lax.top_k`` does.
+
+Capacity, slot order and the load-balance loss are functions of the
+whole batch.  Under a batch split (``distributed.sharding.batch_split``:
+each rank holds some rows) the capacity comes from the whole batch's
+token count; an all-gather of each part's per-expert counts gives the
+part's slot offsets (an exclusive prefix over the parts: a token keeps
+its slot exactly when it keeps it on one device), and an all-reduce the
+whole batch's top-1 counts.  The expert FFN stays local, over the part's
+own slots (at most its token count an expert).  A part's aux loss uses
+its own mean router probabilities, so the mean of the parts' losses is
+the whole batch's.
 """
 from __future__ import annotations
 
@@ -33,7 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
-from repro_torch.distributed.sharding import shard_activation
+from repro_torch.distributed.sharding import current_split, shard_activation
 from repro_torch.models import layers as L
 
 
@@ -109,8 +120,16 @@ def _route(p, m: MoEConfig, x2d):
 
 
 def _load_balance_loss(probs, idx, E):
+    """``E · Σ_e f_e · P_e``: ``f`` the fraction of the batch's tokens
+    whose first choice is ``e``, ``P`` the mean router probability (of
+    this part's tokens under a batch split)."""
     N = idx.shape[0]
-    frac_tokens = _counts(idx[:, 0], E).float() / N
+    top1 = _counts(idx[:, 0], E)
+    split = current_split()
+    if split is not None:
+        top1 = split.all_reduce(top1)
+        N = N * split.n
+    frac_tokens = top1.float() / N
     frac_probs = probs.mean(0)
     return E * torch.sum(frac_tokens * frac_probs)
 
@@ -135,10 +154,12 @@ def moe_apply(p, cfg: ModelConfig, x,
     B, T, D = x.shape
     N = B * T
     x2d = x.reshape(N, D)
-    C = _capacity(m, N) if train else max(8, -(-N // 8) * 8)
+    split = current_split()
+    n_all = N * (split.n if split is not None else 1)  # the whole batch's
+    C = _capacity(m, n_all) if train else max(8, -(-n_all // 8) * 8)
     mode = deterministic_dispatch or m.dispatch
     if mode == "auto":
-        mode = choose_dispatch(N, m.n_experts, m.top_k, C, D)
+        mode = choose_dispatch(n_all, m.n_experts, m.top_k, C, D)
 
     gate, idx, aux = _route(p, m, x2d)
 
@@ -152,6 +173,15 @@ def moe_apply(p, cfg: ModelConfig, x,
     return y.reshape(B, T, D), aux
 
 
+def _part_capacity(C: int, n_tokens: int) -> int:
+    """Slots an expert's buffer holds for this batch: all ``C`` of them,
+    or under a batch split at most the part's ``n_tokens`` (a token
+    takes an expert once), rounded up to 8."""
+    if current_split() is None:
+        return C
+    return min(C, max(8, -(-n_tokens // 8) * 8))
+
+
 def _apply_onehot(p, m: MoEConfig, x2d, gate, idx, C):
     """Unfactorized baseline: dense one-hot dispatch einsum (kept for
     planner validation + tests)."""
@@ -160,6 +190,7 @@ def _apply_onehot(p, m: MoEConfig, x2d, gate, idx, C):
     # unweighted pattern; the gate weights enter at combine (after the
     # nonlinear expert FFN), matching the grouped schedule exactly.
     pos = _slot_positions(idx, m.n_experts, C)         # (N,k) slot or -1
+    C = _part_capacity(C, N)
     disp = x2d.new_zeros((N, m.n_experts, C))
     dispw = x2d.new_zeros((N, m.n_experts, C))
     t = torch.arange(N, device=x2d.device)
@@ -182,6 +213,10 @@ def _slot_positions(idx, E, C):
     Sort-based ranking, O(Nk log Nk) time and O(Nk) memory — the CSF
     construction for the routing tensor: sorting the nnz of D(t,e,c) into
     (e, slot) storage order, per step since routing is dynamic.
+    Under a batch split the slot is the part's own (its rank among the
+    part's tokens), kept when the slot it takes in the whole batch —
+    after those the batch's earlier parts take (their counts,
+    all-gathered) — is under ``C``.
     """
     N, k = idx.shape
     flat = idx.reshape(-1)                              # (Nk,) expert ids
@@ -193,7 +228,11 @@ def _slot_positions(idx, E, C):
     rank_sorted = torch.arange(Nk, device=idx.device) - starts[sorted_e]
     rank = torch.empty_like(rank_sorted)
     rank[order] = rank_sorted                           # a permutation
-    pos = torch.where(rank < C, rank, -1)
+    split = current_split()
+    slot = rank
+    if split is not None:
+        slot = rank + split.all_gather(counts)[:split.index].sum(0)[flat]
+    pos = torch.where(slot < C, rank, -1)
     return pos.reshape(N, k)
 
 
@@ -203,6 +242,7 @@ def _apply_grouped(p, m: MoEConfig, x2d, gate, idx, C):
     N, D = x2d.shape
     E, k = m.n_experts, idx.shape[1]
     pos = _slot_positions(idx, E, C)                    # (N,k)
+    C = _part_capacity(C, N)
     expert = idx.reshape(-1)
     slot = pos.reshape(-1)
     w = gate.reshape(-1).to(x2d.dtype)

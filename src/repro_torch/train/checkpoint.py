@@ -18,6 +18,13 @@ is written as the reference writes it — its bits as a 2-byte void array
 in the manifest — and restored by the manifest's dtype through its bits,
 not a numeric cast.  (The reference's own ``restore`` cannot read such a
 leaf: ``jnp.asarray`` refuses ``|V2``.)
+
+A sharded state (DTensor leaves, ``distributed.sharding``) is saved as one
+device saves it: every rank gathers each leaf (a collective), rank 0
+writes the one shard file and a manifest with ``n_processes`` 1, and all
+ranks meet at a barrier.  ``restore`` into a sharded tree reads that
+file on every rank and keeps each leaf's shard.  So a sharded run resumes
+from a one-device checkpoint and the other way round.
 """
 from __future__ import annotations
 
@@ -30,6 +37,9 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import (as_dtensor, gather_full,
+                                              is_dtensor, local_shard,
+                                              sharding_of)
 from repro_torch.train.tree import key_paths, map_with_keys
 
 _BF16 = "bfloat16"
@@ -71,10 +81,37 @@ def save(tree: Any, directory: str, step: int, process_index: int = 0,
          keep: int = 3) -> str:
     """Write shard + manifest atomically; prune old checkpoints."""
     stepdir = os.path.join(directory, f"step_{step:08d}")
+    if any(is_dtensor(t) for _, t in key_paths(tree)):
+        return _save_gathered(tree, directory, step, stepdir, keep)
     os.makedirs(stepdir, exist_ok=True)
     flat, dtypes = {}, {}
     for k, leaf in key_paths(tree):
         flat[k], dtypes[k] = _to_numpy(leaf)
+    _write(flat, dtypes, stepdir, step, process_index, _n_processes())
+    _prune(directory, keep)
+    return stepdir
+
+
+def _save_gathered(tree, directory: str, step: int, stepdir: str,
+                   keep: int) -> str:
+    """A sharded state written as one device writes it (rank 0)."""
+    writer = torch.distributed.get_rank() == 0
+    flat, dtypes = {}, {}
+    for k, leaf in key_paths(tree):
+        if is_dtensor(leaf):
+            leaf = gather_full(leaf.to_local(), sharding_of(leaf))
+        if writer:
+            flat[k], dtypes[k] = _to_numpy(leaf)
+    if writer:
+        os.makedirs(stepdir, exist_ok=True)
+        _write(flat, dtypes, stepdir, step, 0, 1)
+        _prune(directory, keep)
+    torch.distributed.barrier()
+    return stepdir
+
+
+def _write(flat: dict, dtypes: dict, stepdir: str, step: int,
+           process_index: int, n_processes: int) -> None:
     shard_path = os.path.join(stepdir, f"shard_{process_index}.npz")
     with tempfile.NamedTemporaryFile(dir=stepdir, delete=False) as tf:
         np.savez(tf, **flat)
@@ -87,7 +124,7 @@ def save(tree: Any, directory: str, step: int, process_index: int = 0,
         checksum.update(_head_bytes(flat[k]))
     manifest = {
         "step": step,
-        "n_processes": _n_processes(),
+        "n_processes": n_processes,
         "leaves": {k: {"shape": list(v.shape), "dtype": dtypes[k]}
                    for k, v in flat.items()},
         "checksum": checksum.hexdigest(),
@@ -97,8 +134,6 @@ def save(tree: Any, directory: str, step: int, process_index: int = 0,
         json.dump(manifest, tf)
         tmp = tf.name
     os.replace(tmp, mpath)
-    _prune(directory, keep)
-    return stepdir
 
 
 def _prune(directory: str, keep: int):
@@ -130,7 +165,8 @@ def latest_step(directory: str) -> int | None:
 def restore(tree_like: Any, directory: str, step: int | None = None,
             process_index: int = 0) -> tuple[Any, int]:
     """Restore into the structure of ``tree_like`` (validating keys and
-    shapes); each leaf comes back on its live leaf's device and dtype."""
+    shapes); each leaf comes back on its live leaf's device and dtype (a
+    DTensor leaf as its shard, with its placements)."""
     step = step if step is not None else latest_step(directory)
     if step is None:
         raise FileNotFoundError(f"no complete checkpoint under {directory}")
@@ -148,6 +184,11 @@ def restore(tree_like: Any, directory: str, step: int | None = None,
             raise ValueError(f"shape mismatch for {k}: ckpt {a.shape} vs "
                              f"live {tuple(live.shape)}")
         dtype = manifest["leaves"].get(k, {}).get("dtype", str(a.dtype))
-        return _from_numpy(a, dtype).to(device=live.device, dtype=live.dtype)
+        t = _from_numpy(a, dtype)
+        if is_dtensor(live):
+            sh = sharding_of(live)
+            return as_dtensor(local_shard(t, sh).to(
+                device=live.to_local().device, dtype=live.dtype), sh)
+        return t.to(device=live.device, dtype=live.dtype)
 
     return map_with_keys(leaf, tree_like), manifest["step"]

@@ -29,12 +29,20 @@ class AdamWState:
 
 
 def init_opt_state(params) -> AdamWState:
-    """Zero float32 moments beside each param, and step 0 (an int32 0-d
-    tensor on the params' device)."""
+    """Zero float32 moments beside each param (a DTensor param gets a
+    DTensor moment with its placements, holding only its shard), and
+    step 0 (an int32 0-d tensor on the params' device)."""
+    from repro_torch.distributed.sharding import (as_dtensor, is_dtensor,
+                                                  sharding_of)
     leaves = tree_leaves(params)
     dev = leaves[0].device if leaves else torch.device("cpu")
 
     def zeros(p):
+        if is_dtensor(p):
+            local = p.to_local()
+            return as_dtensor(torch.zeros(local.shape, dtype=torch.float32,
+                                          device=local.device),
+                              sharding_of(p))
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
 
     return AdamWState(m=tree_map(zeros, params), v=tree_map(zeros, params),
@@ -52,20 +60,25 @@ def lr_schedule(run: RunConfig, step):
     return run.learning_rate * warm * (0.1 + 0.9 * decay)
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, leaf_squares=None):
     """(float32 grads scaled to a global norm of at most ``max_norm``,
     the norm before scaling); the squares are summed leaf by leaf in the
-    reference's leaf order."""
+    reference's leaf order.  ``leaf_squares`` (sharded grads) maps the
+    list of each leaf's local sum of squares to the whole leaves'."""
     leaves = [g for _, g in key_paths(grads)]
-    gn = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves))
+    squares = [torch.sum(torch.square(g.float())) for g in leaves]
+    if leaf_squares is not None:
+        squares = leaf_squares(squares)
+    gn = torch.sqrt(sum(squares))
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
     return tree_map(lambda g: g.float() * scale, grads), gn
 
 
 def adamw_update(params, grads, state: AdamWState, run: RunConfig,
-                 b1=0.9, b2=0.95, eps=1e-8):
-    """One AdamW step: (new params, new state, {"lr", "grad_norm"})."""
-    grads, gnorm = clip_by_global_norm(grads, run.grad_clip)
+                 b1=0.9, b2=0.95, eps=1e-8, leaf_squares=None):
+    """One AdamW step: (new params, new state, {"lr", "grad_norm"}).
+    ``leaf_squares``: see :func:`clip_by_global_norm`."""
+    grads, gnorm = clip_by_global_norm(grads, run.grad_clip, leaf_squares)
     step = state.step + 1
     stepf = step.to(torch.float32)
     lr = lr_schedule(run, stepf)

@@ -32,19 +32,22 @@ def key_paths(tree) -> list[tuple[str, Any]]:
     """``[(key, leaf), ...]``: each leaf under its path joined by "/", in
     ``jax.tree_util.tree_flatten_with_path``'s order."""
     out: list[tuple[str, Any]] = []
-
-    def walk(node, prefix):
-        if node is None:
-            return
-        kids = _children(node)
-        if kids is None:
-            out.append(("/".join(prefix), node))
-            return
-        for k, child in kids:
-            walk(child, prefix + (str(k),))
-
-    walk(tree, ())
+    _walk(tree, (), out)
     return out
+
+
+def _walk(node, prefix, out) -> None:
+    # a module-level function: a nested recursive one would sit in a
+    # reference cycle with ``out`` and keep every leaf alive until the
+    # garbage collector runs
+    if node is None:
+        return
+    kids = _children(node)
+    if kids is None:
+        out.append(("/".join(prefix), node))
+        return
+    for k, child in kids:
+        _walk(child, prefix + (str(k),), out)
 
 
 def map_with_keys(fn: Callable[[str, Any], Any], tree, prefix=()):

@@ -1554,3 +1554,100 @@ def test_embed_lookup_backward_on_a_zipf_stream(cuda):
                                                 g.reshape(-1, 256).double())
     err = (a.double() - exact).abs().amax(-1)
     assert bool((err <= 2.0 ** -7 * exact.abs().amax(-1)).all())
+
+
+def _sharded_rank(rank: int, world: int, outdir: str) -> None:
+    """One of two gloo ranks on cuda:0: two sharded steps of reduced
+    granite-moe-1b on a (2, 1) mesh; rank 0 writes the gathered state."""
+    import datetime
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_reduced, make_batch
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model_init
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train.tree import key_paths, map_with_keys
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method="file://" + os.path.join(outdir, "store"),
+        world_size=world, rank=rank,
+        timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_host_mesh(1, "cuda")
+        cfg = get_reduced("granite-moe-1b-a400m")
+        params, specs = model_init(cfg, 0, device="cuda")
+        rules = SH.default_rules(False, "train")
+        state = init_train_state(SH.distribute_params(
+            params, SH.tree_sharding(params, specs, rules, mesh)))
+        batch = make_batch(cfg, "train_4k", batch_override=4,
+                           seq_override=16, device="cuda")
+        step = make_train_step(cfg, RunConfig(model=cfg, remat=True))
+        metrics = []
+        with SH.mesh_context(mesh, rules):
+            for _ in range(2):
+                state, m = step(state, batch)
+                metrics.append({k: float(v) for k, v in m.items()})
+        full = map_with_keys(lambda _, t: SH.gather_full(
+            t.to_local(), SH.sharding_of(t)) if SH.is_dtensor(t) else t,
+            state)
+        if rank == 0:
+            torch.save({"metrics": metrics,
+                        "state": {k: t.cpu() for k, t in key_paths(full)}},
+                       os.path.join(outdir, "sharded.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_train_step_on_two_gloo_ranks_matches_one_device(cuda,
+                                                                   tmp_path):
+    """Two sharded steps (float32, remat) on two gloo ranks on the card
+    against the same steps on one device: loss, lr and grad_norm within
+    ``1e-5`` relative; ``m`` and ``v`` within ``2e-4 · max|want| + 1e-7``
+    a leaf; params within ``2·Σlr + 1e-6 · max|p|``."""
+    import os
+    import time
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs import get_reduced, make_batch
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models import model_init
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train.tree import key_paths
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ctx = mp.start_processes(_sharded_rank, args=(2, str(tmp_path)),
+                             nprocs=2, join=False, start_method="spawn")
+    deadline = time.monotonic() + 300
+    try:
+        while not ctx.join(timeout=1):
+            assert time.monotonic() < deadline, "the ranks hung"
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+    got = torch.load(os.path.join(tmp_path, "sharded.pt"))
+    cfg = get_reduced("granite-moe-1b-a400m")
+    params, _ = model_init(cfg, 0, device=cuda)
+    batch = make_batch(cfg, "train_4k", batch_override=4, seq_override=16,
+                       device=cuda)
+    step = make_train_step(cfg, RunConfig(model=cfg, remat=True))
+    state, metrics = init_train_state(params), []
+    for _ in range(2):
+        state, m = step(state, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+    for gm, wm in zip(got["metrics"], metrics):
+        for name in ("loss", "lr", "grad_norm"):
+            assert abs(gm[name] - wm[name]) <= 1e-5 * abs(wm[name]), name
+    lr_sum = sum(m["lr"] for m in metrics)
+    for key, want in key_paths(state):
+        a, b = got["state"][key].double(), want.cpu().double()
+        scale = float(b.abs().max()) if b.numel() else 0.0
+        tol = (2 * lr_sum + 1e-6 * scale if key.startswith("0/")
+               else 2e-4 * scale + 1e-7)
+        err = float((a - b).abs().max()) if b.numel() else 0.0
+        assert err <= tol, (key, err, tol)

@@ -229,6 +229,25 @@ def test_microbatch_equivalence():
     _rel(m2["loss"], m1["loss"], "loss", tol=1e-6)
 
 
+def test_key_paths_keeps_no_leaf_alive():
+    """A tree whose last holder lets go is freed at once, not at the
+    garbage collector's next pass: ``key_paths`` leaves no reference
+    cycle holding its leaves (a trainer would keep the old state)."""
+    import gc
+    import weakref
+
+    from repro_torch.train.tree import key_paths
+    tree = {"a": torch.zeros(3), "b": [torch.ones(2), {"c": torch.ones(1)}]}
+    refs = [weakref.ref(t) for _, t in key_paths(tree)]
+    assert len(refs) == 3
+    gc.disable()
+    try:
+        del tree
+        assert [r() for r in refs] == [None, None, None]
+    finally:
+        gc.enable()
+
+
 def test_checkpoint_resume_determinism(tmp_path):
     """train 6 straight == train 3, checkpoint, restore, train 3 more — bit
     for bit (the reference allows 1e-6)."""
@@ -401,5 +420,6 @@ def test_launch_train_resumes_from_its_checkpoints(tmp_path, capsys):
         return re.findall(r"step +(\d+) loss (\S+)", out)[-2:]
     assert losses(second) == losses(first)
     assert [i for i, _ in losses(first)] == ["10", "11"]
-    with pytest.raises(NotImplementedError, match="sharding slice"):
+    # --mesh takes its ranks from torchrun: without them it says so
+    with pytest.raises(RuntimeError, match="torchrun --nproc-per-node 4"):
         launch_train.main(argv + ["--mesh", "2x2"])
