@@ -172,6 +172,42 @@ any failure exits non-zero):
    and each rank's collective bytes must equal its count.  ``SHARD``
    lines: per rank the routes (all direct), local state bytes, peak, step ms,
    collectives, worst error over tolerance.
+14. The example applications (``repro_torch.examples``) as a user runs
+   them: (a) ``python -m repro_torch.examples.quickstart`` in a child
+   process, at its own size, with its own asserts, started with (e)'s
+   first run at the phase's start so that the children's start overlaps
+   (b)-(d) in this process; (b) ``cp_als`` on phase 3's coordinates with
+   the example's values (rank-8 structure plus 0.01 noise, from
+   ``--seed``), rank 16, 4 sweeps, model-only plans, over the tensor's
+   three mode-permuted CSFs, built once for (b) and (c)
+   (``csf_build_s``).  First the combine's backward at this shape
+   (:func:`mttkrp_gradients`): autograd of mode A's MTTKRP, whose
+   forward launches K4c, against float64 gathers and ``index_add``.
+   Then the run as a user runs it (seconds, peak), then once more
+   counted, with the first inputs of each combine call recorded and
+   each held against ``segment_combine_plain`` (the ``check``
+   tolerance): the fit must rise, and the last fit must equal a float64
+   one (gathered factor rows and the Gram identity) within 1e-4; (c)
+   ``hooi`` on (b)'s tensor and CSFs, ranks (8, 6, 4), 3 sweeps, run and
+   counted as (b): no captured core norm may fall by more than
+   ``HOOI_NORM_SLACK`` of itself, and the last sweep's mode-0 ``Y`` must
+   meet a float64 ``index_add`` of ``T · U1[j] ⊗ U2[k]``; (d)
+   ``complete`` on phase 3's nonzeros, a rank-12 truth from ``--seed``,
+   10 Adam steps: step 0's loss and its three gradients (autograd
+   through the executor's gathers: TTTP3's plan has no segment sum, so
+   no K4c) within 1e-4 relative of a float64 computation with gathers
+   and ``index_add``, and the loss must fall; (e) ``python -m
+   repro_torch.examples.cp_als --autotune --cache-dir <_build/...>
+   --steps 2`` twice at the example's own size (the second started when
+   the first has ended): every mode plans from the search, then from
+   the cache.  The combine (K4c) must launch in (a), (b), (c) and (e)'s
+   search (the cached winner at that size may be a path with no
+   kernel); the launches of every counted run are added to the
+   summary's counts.  An ``EXAMPLE`` line per run: seconds (in-process
+   runs split into ``setup_s``, the plans (and the completion's CSF
+   build and upload), and ``steps_s``,
+   of which ``first_step_s``; child runs with the child's start), peak,
+   launches, the first and last fit or loss.
 
 Every path of phases 2-7 is timed (CUDA events, median of 10 after 2 warm-ups) and its
 peak memory read.  Then one counted run, with the launch counts zeroed
@@ -291,6 +327,17 @@ SHARD_BATCH = 4                    # global: two rows a data rank
 SHARD_T = 1024                     # train_4k's 4,096 cut: four ranks share
 SHARD_STEPS = 3                    # one card's memory
 SHARD_TIMEOUT_S = 300
+EXAMPLE_CP_RANK = 16               # cp_als's default rank
+EXAMPLE_CP_STEPS = 4
+EXAMPLE_HOOI_RANKS = (8, 6, 4)     # tucker_hooi's default ranks
+EXAMPLE_HOOI_STEPS = 3
+EXAMPLE_TC_RANK = 12               # tensor_completion's default rank
+EXAMPLE_TC_STEPS = 10
+EXAMPLE_TIMEOUT_S = 300
+# a sweep's captured core norm may fall by this share at most: float32
+# rounding of Y's sums (up to ~10^5 terms a row) and of its SVD
+HOOI_NORM_SLACK = 1e-5
+
 # kernel stem -> its name in a profiler trace
 TRACE_NAMES = {stem: f"spttn::{stem}_kernel<" for stem in (
     "reduce", "product", "splitk", "combine", "chain", "mttkrp", "ttmc",
@@ -2879,6 +2926,342 @@ def largest_buffer_bytes(spec, cand, levels, itemsize: int = 4) -> int:
     return biggest * itemsize
 
 
+EXAMPLE_CHILD = """
+import json, os, runpy, sys, time
+import torch
+from repro_torch.kernels import native
+sys.argv = {argv!r}
+t0 = time.perf_counter()
+runpy.run_module({module!r}, run_name="__main__", alter_sys=True)
+torch.cuda.synchronize()
+print("EXAMPLE_CHILD " + json.dumps({{
+    "process_s": time.time() - float(os.environ["EXAMPLE_STARTED"]),
+    "module_s": time.perf_counter() - t0,
+    "peak_GiB": torch.cuda.max_memory_allocated() / 2**30,
+    "launches": native.launch_counts()}}))
+"""
+
+
+class ExampleRun:
+    """``python -m repro_torch.examples.<name> <args>`` as a user runs it,
+    started in a child process that afterwards reports its seconds (its
+    start included), the module's seconds, its peak and its launch
+    counts.  :meth:`finish` waits for it; a run that fails or outlasts
+    ``EXAMPLE_TIMEOUT_S`` fails the phase, and :meth:`stop` ends one that
+    is still running."""
+
+    def __init__(self, name: str, args: list):
+        self.label = f"python -m repro_torch.examples.{name} " + " ".join(
+            args)
+        module = f"repro_torch.examples.{name}"
+        code = EXAMPLE_CHILD.format(argv=[module] + list(args),
+                                    module=module)
+        env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+                   EXAMPLE_STARTED=repr(time.time()))
+        self.out = tempfile.TemporaryFile("w+")
+        self.proc = subprocess.Popen([sys.executable, "-c", code], env=env,
+                                     stdout=self.out,
+                                     stderr=subprocess.STDOUT, text=True)
+
+    def finish(self) -> tuple[str, dict]:
+        """The child's output and its report."""
+        try:
+            rc = self.proc.wait(timeout=EXAMPLE_TIMEOUT_S)
+        finally:
+            self.stop()
+        self.out.seek(0)
+        out = self.out.read()
+        if rc != 0 or "EXAMPLE_CHILD " not in out:
+            raise AssertionError(f"{self.label} exited {rc}:\n"
+                                 f"{out[-6000:]}")
+        return out, json.loads(out.rsplit("EXAMPLE_CHILD ", 1)[1])
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def mttkrp_gradients(coo, csf, c, dev, seed: int) -> None:
+    """The combine's backward at the examples' shape: autograd of the
+    ``torch`` engine's MTTKRP (CP-ALS's mode A, rank
+    ``EXAMPLE_CP_RANK``; its plan's segment sums launch K4c in the
+    forward) against float64 gathers and ``index_add``, the output and
+    both factors' gradients for a cotangent from ``seed``.  A check:
+    its launches count toward no path."""
+    import numpy as np
+    import torch
+
+    from repro_torch import make_executor, parse, plan
+    from repro_torch.kernels import native
+    I, J, K = coo.shape
+    R = EXAMPLE_CP_RANK
+    spec = parse("ijk,ja,ka->ia", dims={"i": I, "j": J, "k": K, "a": R},
+                 sparse=0, names=["T", "F1", "F2"])
+    p = plan(spec, nnz_levels=csf.host.nnz_levels())
+    ex = make_executor(spec, p.path, p.order)
+    rng = np.random.default_rng(seed + 1)
+    B, C, G = (torch.from_numpy(rng.standard_normal((n, R))
+                                .astype(np.float32)).to(dev)
+               for n in (J, K, I))
+    B.requires_grad_()
+    C.requires_grad_()
+    native.reset_launch_counts()
+    out = ex(csf, {"F1": B, "F2": C})
+    fwd = native.launch_counts()["combine"]
+    gB, gC = torch.autograd.grad(out, (B, C), G)
+    torch.cuda.synchronize()
+    log(f"example MTTKRP gradients: K4c launched {fwd} times in the "
+        f"forward")
+    if fwd < 1:
+        raise AssertionError("the MTTKRP's forward launched no combine")
+    v = torch.from_numpy(coo.values).to(dev, torch.float64)
+    B64, C64 = B.detach().double(), C.detach().double()
+    want = torch.zeros((I, R), dtype=torch.float64, device=dev).index_add_(
+        0, c[0], v[:, None] * B64[c[1]] * C64[c[2]])
+    check(f"example MTTKRP ({I} x {J} x {K}, R {R}) vs float64",
+          out.detach(), want)
+    gi = v[:, None] * G.double()[c[0]]
+    del v, want, out
+    want = torch.zeros_like(B64).index_add_(0, c[1], gi * C64[c[2]])
+    check("example MTTKRP gradient of F1 (through the combine's backward) "
+          "vs float64", gB, want)
+    want = torch.zeros_like(C64).index_add_(0, c[2], gi * B64[c[1]])
+    check("example MTTKRP gradient of F2 (through the combine's backward) "
+          "vs float64", gC, want)
+    del gi, want
+    torch.cuda.empty_cache()
+
+
+def example_apps(coo, dev, seed: int, drv) -> None:
+    """Phase 14: the paper's example applications
+    (``repro_torch.examples``) as a user runs them (see the module's
+    docstring).  An ``EXAMPLE`` line per run; each run's launches are
+    added to the summary's counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch import COOTensor, CSFArrays, build_csf
+    from repro_torch.examples.cp_als import cp_als
+    from repro_torch.examples.tensor_completion import complete
+    from repro_torch.examples.tucker_hooi import hooi
+    from repro_torch.kernels import native
+    from repro_torch.kernels.segment import (segment_combine,
+                                             segment_combine_plain)
+
+    def launched(counts: dict, label: str, at_least: int = 1) -> dict:
+        for stem, n in counts.items():
+            drv.launches[stem] += n
+        if counts["combine"] < at_least:
+            raise AssertionError(f"{label}: {counts['combine']} combine "
+                                 f"launches, expected {at_least} or more")
+        return {k: n for k, n in counts.items() if n}
+
+    def counted(run):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        native.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = run()
+        torch.cuda.synchronize()
+        return (got, time.perf_counter() - t0,
+                torch.cuda.max_memory_allocated() / 2**30,
+                native.launch_counts())
+
+    def user_then_counted(label: str, run, stats: dict):
+        """``run(stats)`` as a user runs it (its seconds, peak and
+        ``stats``), then ``run(None)`` counted, with the first inputs of
+        each combine call recorded; each is then held against its plain
+        version.  Returns the counted run's result and launches beside
+        the first run's seconds and peak."""
+        _, secs, peak, _ = counted(lambda: run(stats))
+        torch.cuda.empty_cache()
+        sink, calls = {}, collections.Counter()
+        restore = recording_combines(sink, calls)
+        got, _, _, counts = counted(lambda: run(None))
+        if restore() != counts["combine"]:
+            raise AssertionError(f"{label}: a caller of the combine is not "
+                                 f"recorded")
+        for (site, (n, w), nseg), (rows, ptr, _) in sink.items():
+            check(f"example {label} K4c {site} ({n}, {w}) -> ({nseg}, {w})",
+                  segment_combine(rows, ptr, nseg),
+                  segment_combine_plain(rows, ptr, nseg))
+        del sink
+        torch.cuda.empty_cache()
+        return got, secs, peak, counts
+
+    def example_line(name: str, **rec) -> None:
+        log("EXAMPLE " + json.dumps({"example": name, **rec}))
+
+    def child_line(name: str, child: ExampleRun, at_least: int, **rec):
+        out, rep = child.finish()
+        example_line(name, **rec, seconds=rep["process_s"],
+                     module_s=rep["module_s"], peak_GiB=rep["peak_GiB"],
+                     launches=launched(rep["launches"], name, at_least))
+        return out
+
+    def autotuned(want: str, child: ExampleRun, at_least: int) -> None:
+        out = child_line(f"cp_als --autotune ({want})", child, at_least,
+                         size=small, rank=16, steps=2)
+        log("cp_als --autotune: done in " + out.split("done in ")[1]
+            .splitlines()[0])
+        for name in "ABC":
+            if f"mode {name}: plan from {want}" not in out:
+                raise AssertionError(f"cp_als --autotune: mode {name} did "
+                                     f"not plan from {want}")
+
+    # (a) and (e)'s first run start now, in children: their start (an
+    # interpreter, torch, a context on the card) overlaps (b)-(d) here
+    os.makedirs(native.BUILD_DIR, exist_ok=True)
+    cache = tempfile.mkdtemp(prefix="example-plans-", dir=native.BUILD_DIR)
+    tuned = ["--autotune", "--cache-dir", cache, "--steps", "2", "--device",
+             "cuda"]
+    small = "128 x 96 x 80, density 5e-3"
+    children = [ExampleRun("quickstart", ["--device", "cuda"]),
+                ExampleRun("cp_als", tuned)]
+    try:
+        nnz = coo.nnz
+        c = [torch.from_numpy(coo.coords[:, m].astype(np.int64)).to(dev)
+             for m in range(3)]
+        shape = f"{' x '.join(map(str, coo.shape))}, {nnz} nonzeros"
+
+        # (b) CP-ALS at nell-2's shape on cp_als.main's values: rank-8
+        # structure plus 0.01 noise, drawn from the seed
+        rng = np.random.default_rng(seed)
+        A0, B0, C0 = (torch.from_numpy(rng.standard_normal((n, 8))).to(dev)
+                      for n in coo.shape)
+        vals = (A0[c[0]] * B0[c[1]] * C0[c[2]]).sum(1).float().cpu().numpy()
+        vals = (vals + 0.01 * rng.standard_normal(nnz)).astype(np.float32)
+        del A0, B0, C0
+        cp = COOTensor(coords=coo.coords, values=vals, shape=coo.shape)
+        # its three mode-permuted CSFs, built once for CP-ALS and HOOI
+        t0 = time.perf_counter()
+        csfs = [CSFArrays.from_csf(build_csf(cp.permute_modes(
+            (m,) + tuple(x for x in range(3) if x != m))), dev)
+            for m in range(3)]
+        torch.cuda.synchronize()
+        csf_s = time.perf_counter() - t0
+        mttkrp_gradients(cp, csfs[0], c, dev, seed)
+        st = {}
+        ((A, B, C), hist), secs, peak, counts = user_then_counted(
+            "cp_als", lambda st: cp_als(
+                cp, EXAMPLE_CP_RANK, EXAMPLE_CP_STEPS, seed, device=dev,
+                stats=st, arrays=csfs), st)
+        if not hist[-1] > hist[0]:
+            raise AssertionError(f"cp_als: the fit fell, {hist}")
+        v = torch.from_numpy(vals).to(dev, torch.float64)
+        A64, B64, C64 = (x.double() for x in (A, B, C))
+        est = (A64[c[0]] * B64[c[1]] * C64[c[2]]).sum(1)
+        t2, cross = (v * v).sum(), (v * est).sum()
+        est2 = ((A64.T @ A64) * (B64.T @ B64) * (C64.T @ C64)).sum()
+        fit64 = float(1 - torch.sqrt(torch.clamp(t2 - 2 * cross + est2,
+                                                 min=0)) / torch.sqrt(t2))
+        hold("example cp_als last fit vs float64 (gathered rows, Gram "
+             "identity)", abs(hist[-1] - fit64), 1e-4)
+        del est, A64, B64, C64, A, B, C
+        example_line("cp_als", size=shape, rank=EXAMPLE_CP_RANK,
+                     steps=EXAMPLE_CP_STEPS, csf_build_s=csf_s,
+                     seconds=secs, **st, peak_GiB=peak, first_fit=hist[0],
+                     last_fit=hist[-1], fit64=fit64, launches=launched(
+                         counts, "cp_als", 3 * EXAMPLE_CP_STEPS))
+        torch.cuda.empty_cache()
+
+        # (e) the measured search at the example's own size, cold; the
+        # warm run starts once the cold one has written the cache
+        autotuned("search", children[1], 1)
+        children.append(ExampleRun("cp_als", tuned))
+
+        # (c) HOOI at nell-2's shape, on (b)'s tensor and CSFs
+        seen = {}
+
+        def on_mode(it, mode, Y, U):
+            if it == EXAMPLE_HOOI_STEPS - 1 and mode == 0:
+                seen.update(Y=Y, U1=U[1], U2=U[2])
+
+        st = {}
+        (_, norms), secs, peak, counts = user_then_counted(
+            "tucker_hooi", lambda st: hooi(
+                cp, EXAMPLE_HOOI_RANKS, EXAMPLE_HOOI_STEPS, device=dev,
+                seed=seed, stats=st, on_mode=on_mode, arrays=csfs), st)
+        del csfs
+        falls = [b / a - 1 for a, b in zip(norms, norms[1:])]
+        if min(falls) < -HOOI_NORM_SLACK:
+            raise AssertionError(f"hooi: a core norm fell, {norms}")
+        U1, U2 = seen["U1"].double(), seen["U2"].double()
+        outer = (v[:, None, None] * U1[c[1]][:, :, None]
+                 * U2[c[2]][:, None, :])
+        Y64 = torch.zeros((coo.shape[0],) + outer.shape[1:],
+                          dtype=torch.float64, device=dev).index_add_(
+                              0, c[0], outer)
+        del outer, v
+        check("example hooi last sweep's mode-0 Y vs float64 index_add",
+              seen["Y"], Y64)
+        del Y64, seen
+        example_line("tucker_hooi", size=shape, ranks=EXAMPLE_HOOI_RANKS,
+                     steps=EXAMPLE_HOOI_STEPS, seconds=secs, **st,
+                     peak_GiB=peak, core_norms=norms, launches=launched(
+                         counts, "tucker_hooi", 3 * EXAMPLE_HOOI_STEPS))
+        torch.cuda.empty_cache()
+
+        # (d) completion of a rank-12 truth drawn from the seed, observed
+        # on the tensor's nonzeros
+        rng = np.random.default_rng(seed)
+        P0 = [torch.from_numpy(rng.standard_normal((n, EXAMPLE_TC_RANK))
+                               .astype(np.float32) * 0.5).to(dev)
+              for n in coo.shape]
+        truth = (P0[0][c[0]] * P0[1][c[1]] * P0[2][c[2]]).sum(1)
+        del P0
+        first = {}
+
+        def on_step(it, v, params, grads):
+            if it == 0:
+                first.update(v=float(v), params=[p.detach().clone()
+                                                 for p in params],
+                             grads=[g.clone() for g in grads])
+
+        st = {}
+        losses, secs, peak, counts = counted(lambda: complete(
+            coo, truth.cpu().numpy(), EXAMPLE_TC_RANK, EXAMPLE_TC_STEPS,
+            0.05, dev, rng, stats=st, on_step=on_step))
+        P = [p.double() for p in first["params"]]
+        g = [P[m][c[m]] for m in range(3)]
+        resid = (g[0] * g[1] * g[2]).sum(1) - truth.double()
+        loss64 = float(0.5 * (resid * resid).mean())
+        hold("example completion step-0 loss vs float64 (relative)",
+             abs(first["v"] - loss64) / loss64, 1e-4)
+        w = (resid / nnz)[:, None]
+        for m, name in enumerate("ABC"):
+            o = [x for k, x in enumerate(g) if k != m]
+            want = torch.zeros_like(P[m]).index_add_(0, c[m],
+                                                     w * o[0] * o[1])
+            err = float((first["grads"][m].double() - want).abs().max())
+            hold(f"example completion step-0 grad {name} vs float64 "
+                 f"(relative to max|g|)", err / float(want.abs().max()),
+                 1e-4)
+        del g, resid, w, truth, first, P, c
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"completion: the loss did not fall, "
+                                 f"{losses}")
+        example_line("tensor_completion", size=shape, rank=EXAMPLE_TC_RANK,
+                     steps=EXAMPLE_TC_STEPS, seconds=secs, **st,
+                     peak_GiB=peak, first_loss=losses[0],
+                     last_loss=losses[-1], loss64=loss64,
+                     launches=launched(counts, "tensor_completion", 0))
+        torch.cuda.empty_cache()
+
+        # (a) the quickstart at its own size, with its own asserts
+        out = child_line("quickstart", children[0], 1,
+                         size="256 x 128 x 64, R 32, density 1e-3")
+        log("quickstart: max |out - dense einsum oracle|" + out.split(
+            "max |out - dense einsum oracle|")[1].splitlines()[0])
+        # (e) warm: the cached winner at this size may be a path with no
+        # kernel
+        autotuned("cache", children[2], 0)
+    finally:
+        for child in children:
+            child.stop()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3311,6 +3694,10 @@ def main(argv=None) -> int:
     # -- 13. sharded training: granite-moe-1b over a (2, 2) mesh -------- #
     sharded_training(dev, args.seed)
     phase_done("13 sharded train")
+
+    # -- 14. the example applications: quickstart, CP-ALS, HOOI, completion
+    example_apps(coo, dev, args.seed, drv)
+    phase_done("14 examples")
 
     missing = [s for s, n in drv.launches.items() if n == 0]
     if missing:

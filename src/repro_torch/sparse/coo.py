@@ -41,9 +41,25 @@ class COOTensor:
 
 def _sorted(coords: np.ndarray, values: np.ndarray,
             shape: tuple[int, ...]) -> COOTensor:
-    key = np.lexsort(coords.T[::-1])
+    key = _lexicographic_order(coords, shape)
     return COOTensor(coords=np.ascontiguousarray(coords[key]),
                      values=np.ascontiguousarray(values[key]), shape=shape)
+
+
+def _lexicographic_order(coords: np.ndarray,
+                         shape: tuple[int, ...]) -> np.ndarray:
+    """``np.lexsort(coords.T[::-1])``: the stable lexicographic order of
+    the rows.  Where every row lies in ``shape`` and the index space fits
+    an int64, it is the stable order of one row-major key per row, which
+    sorts several times faster at millions of rows (and in linear time
+    when the rows are sorted already)."""
+    if (coords.ndim == 2 and coords.shape[0] and coords.shape[1] == len(shape)
+            and float(np.prod([float(s) for s in shape])) < 2.0 ** 62
+            and coords.min() >= 0
+            and bool((coords.max(axis=0) < np.asarray(shape)).all())):
+        return np.argsort(np.ravel_multi_index(tuple(coords.T), shape),
+                          kind="stable")
+    return np.lexsort(coords.T[::-1])
 
 
 def from_dense(a: np.ndarray) -> COOTensor:

@@ -384,6 +384,44 @@ def test_combine_kernel_empty_segments_are_zero(cuda):
     assert torch.equal(out.cpu(), want)
 
 
+def test_torch_engine_gradient_on_the_card_matches_the_cpu(cuda):
+    """``torch.autograd.grad`` through the ``torch`` engine's MTTKRP (two
+    segment sums: two combine launches forward) on the card equals the
+    CPU's.  The combine's backward, a gather, reads nothing back to the
+    host."""
+    spec = S.mttkrp(30, 20, 25, 8)
+    csf = build_csf(random_sparse((30, 20, 25), 0.05, seed=3,
+                                  distribution="frostt"))
+    rng = np.random.default_rng(2)
+    f = {t.name: rng.standard_normal([spec.dims[i] for i in t.indices])
+         .astype(np.float32) for t in spec.inputs if not t.is_sparse}
+    w = torch.from_numpy(rng.standard_normal((30, 8)).astype(np.float32))
+    p = plan(spec, nnz_levels=csf.nnz_levels())
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        arrays = CSFArrays.from_csf(csf, dev)
+        fb = {k: torch.from_numpy(v).to(dev).requires_grad_()
+              for k, v in f.items()}
+        native.reset_launch_counts()
+        out = execute_plan(p, arrays, fb, backend="torch")
+        loss = (out * w.to(dev)).sum()
+        torch.cuda.synchronize()
+        assert native.launch_counts()["combine"] == (2 if dev == "cuda"
+                                                     else 0)
+        grads[dev] = torch.autograd.grad(loss, [fb["B"], fb["C"]])
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        _close(got, want, torch.float32)
+    rows = torch.randn((9, 4), device=cuda, requires_grad=True)
+    ptr = torch.tensor([0, 3, 3, 7], device=cuda)     # rows 7, 8 in none
+    out = segment_combine(rows, ptr, 3)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        (g,) = torch.autograd.grad(out, rows, torch.ones_like(out))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(g.sum(1).cpu(), torch.tensor([4.0] * 7 + [0.0] * 2))
+
+
 def test_kernel_wrappers_reject_what_they_cannot_take(cuda):
     rows = torch.zeros((4, 2), dtype=torch.float16, device=cuda)
     ptr = torch.tensor([0, 4], device=cuda)

@@ -4,7 +4,9 @@
   package — checked statically over every source file (the model stack,
   ``serve``, ``launch`` and ``distributed/sharding.py`` included) and
   dynamically in a fresh interpreter that plans and runs a kernel, a
-  model's forward, a ``Server`` and ``launch.serve`` on the CPU;
+  model's forward, a ``Server`` and ``launch.serve`` on the CPU, and in
+  one that runs the examples; the examples import through the
+  ``repro_torch`` facade only;
 * every name of the reference's ``repro.core.__all__`` resolves in
   ``repro_torch.core``;
 * on CPU tensors no kernel launches (every launch count stays 0), and a
@@ -153,6 +155,65 @@ def test_the_training_slice_is_checked_by_the_import_scan():
                 "train/fault.py", "train/tree.py", "data/__init__.py",
                 "data/pipeline.py", "launch/train.py"):
         assert mod in scanned, mod
+
+
+EXAMPLES = ("examples/__init__.py", "examples/quickstart.py",
+            "examples/cp_als.py", "examples/tucker_hooi.py",
+            "examples/tensor_completion.py")
+# the port's counterparts of scripts/check_example_imports.py's prefixes
+FACADE_COVERED = tuple(f"repro_torch.{p}" for p in (
+    "core", "autotune", "sparse", "kernels", "distributed"))
+
+
+def test_the_examples_are_checked_by_the_import_scan():
+    scanned = {os.path.relpath(p, PORT) for p in _port_sources()}
+    for mod in EXAMPLES:
+        assert mod in scanned, mod
+
+
+@pytest.mark.parametrize("mod", EXAMPLES[1:])
+def test_examples_import_only_through_the_facade(mod):
+    """The port's examples keep the reference's CI rule for its examples
+    (``scripts/check_example_imports.py``): no import of a package the
+    ``repro_torch`` facade covers."""
+    path = os.path.join(PORT, mod)
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names = [node.module]
+        else:
+            continue
+        for n in names:
+            assert not any(n == p or n.startswith(p + ".")
+                           for p in FACADE_COVERED), (mod, node.lineno, n)
+
+
+def test_fresh_interpreter_runs_the_examples_without_jax_or_repro():
+    """Each example, run as ``python -m`` runs it with ``--device cpu``,
+    passes its own asserts and imports neither JAX nor the JAX package."""
+    code = """
+import runpy, sys
+for argv in (["quickstart"], ["cp_als", "--steps", "2"],
+             ["tucker_hooi", "--steps", "2"],
+             ["tensor_completion", "--steps", "40"]):
+    sys.argv = [argv[0]] + argv[1:] + ["--device", "cpu"]
+    runpy.run_module("repro_torch.examples." + argv[0], run_name="__main__",
+                     alter_sys=True)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not bad, bad
+print("CLEAN")
+"""
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+               EX_SCALE="0.1")
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "completion converged" in out.stdout and "HOOI done" in out.stdout
+    assert "CLEAN" in out.stdout
 
 
 def test_fresh_interpreter_trains_without_jax_or_repro(tmp_path):

@@ -84,6 +84,43 @@ def test_random_sparse_is_bit_identical(shape, density, dist):
     np.testing.assert_array_equal(a.values, b.values)
 
 
+def _nell2_kind(pkg):
+    return pkg.random_sparse((12092, 9184, 28818),
+                             2e5 / (12092 * 9184 * 28818), seed=3,
+                             distribution="frostt")
+
+
+ORDERINGS = [
+    pytest.param(lambda pkg: _nell2_kind(pkg).permute_modes(perm),
+                 id=f"permute{''.join(map(str, perm))}")
+    for perm in ((1, 0, 2), (2, 0, 1), (0, 2, 1))
+] + [
+    # repeated rows: the stable order keeps them in input order, then sums
+    pytest.param(lambda pkg: pkg.from_coords(
+        [[1, 2, 0], [0, 5, 1], [1, 2, 0], [0, 1, 3], [0, 5, 1]],
+        np.arange(5, dtype=np.float32), (2, 6, 4)), id="duplicates"),
+    # a row outside the shape takes numpy's lexsort, as before
+    pytest.param(lambda pkg: pkg.from_coords(
+        [[1, 9, 0], [0, 5, 1], [1, 2, 0]], np.arange(3, dtype=np.float32),
+        (2, 6, 4), sum_duplicates=False), id="outside-the-shape"),
+    pytest.param(lambda pkg: pkg.from_dense(
+        np.random.default_rng(0).standard_normal((5, 4, 3))
+        * (np.random.default_rng(1).random((5, 4, 3)) < 0.3)),
+                 id="from-dense"),
+]
+
+
+@pytest.mark.parametrize("make", ORDERINGS)
+def test_coo_orderings_are_bit_identical(make):
+    """The port sorts COO rows by one row-major int64 key where the rows
+    lie in the shape (numpy's lexsort otherwise); the order is the
+    reference's lexsort's."""
+    a, b = make(jcoo), make(tcoo)
+    assert a.shape == b.shape
+    np.testing.assert_array_equal(a.coords, b.coords)
+    np.testing.assert_array_equal(a.values, b.values)
+
+
 @pytest.mark.parametrize("name,args,density", SPECS, ids=SPEC_IDS)
 def test_csf_arrays_and_segments_identical(name, args, density):
     jspec, tspec = getattr(JS, name)(*args), getattr(TS, name)(*args)
