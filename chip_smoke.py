@@ -112,7 +112,7 @@ any failure exits non-zero):
    requests of 16-192 prompt tokens and 32 new tokens each through
    ``Server(slots=4, cache_len=256)`` (a ``MODEL_SERVE`` line: run
    seconds, tokens per second, peak memory, decode-step ms with 4 slots,
-   prefill ms by prompt length), then 20 decode steps traced (the
+   prefill ms by prompt length), then 5 decode steps traced (the
    device's busy share, a ``PROFILE`` line); (2) prefill of 63 tokens
    plus one decode step against ``forward`` over 64, in bf16 (§2's
    element-wise bf16 bound) and in a float32 copy of the weights
@@ -208,6 +208,32 @@ any failure exits non-zero):
    build and upload), and ``steps_s``,
    of which ``first_step_s``; child runs with the child's start), peak,
    launches, the first and last fit or loss.
+15. The LM examples (``repro_torch.examples.serve_lm``, ``train_lm``)
+   and the plan-invariants lane (``repro_torch.analysis.plan_invariants``):
+   (a) ``serve_lm.serve`` on smollm-135m at full width in bf16 (30
+   layers, d_model 576, 9 heads over 3 kv heads, d_ff 1,536, vocab
+   49,152, tied embeddings; 134,515,008 parameters from ``--seed``) with
+   the example's six prompts of 8 tokens, 12 new, ``Server(slots=4,
+   cache_len=64)``: every served token held by
+   :func:`served_tokens_check` (bf16), prefill and decode against
+   ``forward``, an ``EXAMPLE`` line (seconds, tokens/s, a 4-slot decode
+   step's ms, peak); (b) ``train_lm.train`` at the same widths with the
+   example's batch 8, sequence 64 and schedule, 102 steps straight under
+   ``_build/`` (its 200 cut; a checkpoint at 100), then again from the
+   same directory: it resumes at 100, and steps 100 and 101's losses and
+   the final state equal the straight run's bit for bit; step 0's loss
+   within ``2**-8`` relative of ``loss_fn`` in float32 on the same params
+   and batch (an ``EXAMPLE`` line: seconds, step ms, tokens/s, peak,
+   checkpoint bytes); (d) ``serve_lm.main`` and ``train_lm.main`` (the
+   reduced model, its defaults) in this process; (a), (b) and (d) launch
+   no kernel of this package.  (c) The lane, ``main(["--exec-budget",
+   "72", "--device", "cuda"])``, counted: every enumerated nest on the
+   ``torch``, ``cuda`` and ``cuda-splitk`` engines against the dense
+   oracle, the 25 seeded plans, exit 0 and no ``FAIL`` line; K1, K2, K4
+   and K4c must launch, the recorded calls account for every launch,
+   and each kernel's first inputs of each stage expression or combine
+   shape are held against its plain version (a ``LANE`` line; the
+   launches are added to the summary's counts).
 
 Every path of phases 2-7 is timed (CUDA events, median of 10 after 2 warm-ups) and its
 peak memory read.  Then one counted run, with the launch counts zeroed
@@ -313,7 +339,7 @@ MODEL_REQUESTS = 8
 MODEL_PROMPTS = (16, 192)
 MODEL_MAX_NEW = 32
 MODEL_PREFILL_LENGTHS = (16, 64, 128, 192)
-MODEL_TRACE_STEPS = 20
+MODEL_TRACE_STEPS = 5
 MODEL_CHECK_T = 64
 # phase 12: training granite-moe-1b at full width, train_4k's T
 TRAIN_ARCH = "granite-moe-1b-a400m"
@@ -334,6 +360,9 @@ EXAMPLE_HOOI_STEPS = 3
 EXAMPLE_TC_RANK = 12               # tensor_completion's default rank
 EXAMPLE_TC_STEPS = 10
 EXAMPLE_TIMEOUT_S = 300
+LM_ARCH = "smollm-135m"            # phase 15: serve_lm and train_lm at
+LM_TRAIN_STEPS = 102               # full width; train_lm's 200 steps cut
+LM_LANE_BUDGET = 72                # every enumerated nest on the engines
 # a sweep's captured core norm may fall by this share at most: float32
 # rounding of Y's sums (up to ~10^5 terms a row) and of its SVD
 HOOI_NORM_SLACK = 1e-5
@@ -1577,9 +1606,11 @@ def serve_stream(moe, dev, seed: int, drv) -> None:
 
 def served_tokens_check(label, params, cfg, reqs) -> None:
     """Every token a server gave is ``forward``'s argmax at its position,
-    or its logit is within the float32 tolerance of that argmax's
-    (``1e-4 * max(1, max|row|)``: random weights give near-ties, so the
-    logits are compared, not the tokens)."""
+    or its logit is within the tolerance of that argmax's (random weights
+    give near-ties, so the logits are compared, not the tokens): in
+    float32 ``1e-4 * max(1, max|row|)``; in bf16 twice the element-wise
+    bf16 bound of :func:`max_err` at the row's largest logit (each of the
+    two logits compared may be off by one bound)."""
     import numpy as np
     import torch
 
@@ -1593,7 +1624,13 @@ def served_tokens_check(label, params, cfg, reqs) -> None:
         rows = logits[0, len(r.prompt) - 1:, :cfg.vocab].double().cpu()
         got = torch.as_tensor(r.out)
         gap = rows.max(-1).values - rows[torch.arange(len(r.out)), got]
-        tol = 1e-4 * rows.abs().amax(-1).clamp(min=1.0)
+        amax = rows.abs().amax(-1)
+        if cfg.compute_dtype == torch.bfloat16:
+            tol = 2 * torch.minimum(
+                1e-2 * amax.clamp(min=1.0),
+                2.0 ** -7 * amax + 2.0 ** -4 * rows.pow(2).mean(-1).sqrt())
+        else:
+            tol = 1e-4 * amax.clamp(min=1.0)
         worst = max(worst, float((gap / tol).max()))
         argmax_equal += int((rows.argmax(-1) == got).sum())
         total += len(r.out)
@@ -3262,6 +3299,234 @@ def example_apps(coo, dev, seed: int, drv) -> None:
             child.stop()
 
 
+def lane_check(drv) -> None:
+    """Phase 15 (c): the plan-invariants lane with its operands on the
+    card, counted (the launch counts zeroed just before it, read just
+    after), each kernel's first inputs of each stage expression and each
+    combine shape recorded and held against its plain version."""
+    import contextlib
+    import io
+    import re
+
+    import torch
+
+    from repro_torch.analysis import plan_invariants
+    from repro_torch.kernels import native
+    sinks = {k: ({}, collections.Counter()) for k in ("stage", "combine")}
+    restore = recording_lowerings(*sinks["stage"])
+    restore_combines = recording_combines(*sinks["combine"])
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    native.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = plan_invariants.main(["--exec-budget", str(LM_LANE_BUDGET),
+                                       "--device", "cuda"])
+        torch.cuda.synchronize()
+    finally:
+        restore()
+        recorded = restore_combines()
+    secs = time.perf_counter() - t0
+    counts = native.launch_counts()
+    out = buf.getvalue()
+    for line in out.splitlines():
+        log(f"lane: {line}")
+    fails = [line for line in out.splitlines() if line.startswith("FAIL")]
+    nests = re.search(r"parity: (\d+) nests verified, (\d+) executed", out)
+    battery = re.search(r"battery: (\d+) seeded plans", out)
+    if rc != 0 or fails or not nests or not battery or \
+            int(nests[2]) != LM_LANE_BUDGET:
+        raise AssertionError(f"the plan-invariants lane failed (exit {rc})")
+    if recorded != counts["combine"]:
+        raise AssertionError(f"lane: {counts['combine']} combine launches, "
+                             f"{recorded} recorded")
+    entries = (stage_entries(*sinks["stage"])
+               + combine_entries(*sinks["combine"], "lane", set()))
+    for stem in ("reduce", "product", "splitk", "combine"):
+        mine = [e for e in entries if e.stem == stem]
+        if not counts[stem] or sum(e.calls for e in mine) != counts[stem]:
+            raise AssertionError(
+                f"lane: {counts[stem]} launches of {stem}, its recorded "
+                f"calls {[e.calls for e in mine]}")
+    for e in entries:
+        check(f"lane {e.name} {e.stage} ({e.where})", e.kern(), e.plain())
+    for stem, n in counts.items():
+        drv.launches[stem] += n
+    log("LANE " + json.dumps({
+        "nests_verified": int(nests[1]), "nests_executed": int(nests[2]),
+        "battery": int(battery[1]), "engines": list(plan_invariants.ENGINES),
+        "seconds": secs, "launches": {k: n for k, n in counts.items() if n},
+        "checked_against_plain": len(entries)}))
+
+
+def lm_examples(dev, seed: int, drv) -> None:
+    """Phase 15: the LM examples (``repro_torch.examples.serve_lm``,
+    ``train_lm``) at smollm-135m's full width and the plan-invariants
+    lane (see the module's docstring)."""
+    import contextlib
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_loader
+    from repro_torch.examples import serve_lm, train_lm
+    from repro_torch.kernels import native
+    from repro_torch.models import decode_step, loss_fn, model_init, prefill
+    from repro_torch.models.layers import tree_leaves, tree_map
+    t_part = [time.perf_counter()]
+
+    def part_done(name: str) -> None:
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        log(f"MODEL_PART lm {name}: {now - t_part[0]:.1f} s")
+        t_part[0] = now
+
+    def quiet(run):
+        """``run()`` with its printed lines logged after it; returns its
+        result and its output."""
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            got = run()
+        out = buf.getvalue()
+        for line in out.splitlines():
+            log(f"  | {line}")
+        return got, out
+
+    native.reset_launch_counts()
+    cfg = get_config(LM_ARCH)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params, _ = model_init(cfg, gen)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"MODEL {cfg.name}: {n_params} parameters in {cfg.dtype}")
+
+    # (a) serve_lm.serve at full width: the example's prompts, slots,
+    # cache rows and lengths
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    done, _ = quiet(lambda: serve_lm.serve(cfg, params))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    served_tokens_check(f"{cfg.name} serve_lm", params, cfg, done)
+    decode_against_forward(f"{cfg.name} bf16", params, cfg, dev, seed)
+    slots = serve_lm.SLOTS
+    batch = {"tokens": torch.as_tensor(np.stack([r.prompt for r in
+                                                 done[:slots]]), device=dev)}
+    _, caches = prefill(params, cfg, batch, cache_len=serve_lm.CACHE_LEN)
+    toks = torch.zeros((slots, 1), dtype=torch.int32, device=dev)
+    pos = torch.full((slots,), batch["tokens"].shape[1], device=dev)
+    decode_ms = time_ms(lambda: decode_step(params, cfg, caches, toks, pos))
+    del caches
+    ntok = sum(len(r.out) for r in done)
+    log("EXAMPLE " + json.dumps({
+        "example": "serve_lm", "arch": cfg.name, "dtype": cfg.dtype,
+        "slots": slots, "cache_len": serve_lm.CACHE_LEN,
+        "requests": len(done),
+        "prompt_len": len(done[0].prompt), "generated_tokens": ntok,
+        "seconds": secs, "tokens_per_s": ntok / secs,
+        "decode_step_ms": decode_ms, "peak_GiB": peak}))
+    part_done("a serve_lm")
+
+    # (b) train_lm.train at full width: 102 steps straight (a checkpoint
+    # at 100), then again from the same directory (resumed at 100)
+    work = os.path.join(REPO, "src", "repro_torch", "_build", "train_lm")
+    shutil.rmtree(work, ignore_errors=True)
+    log(f"EXAMPLE_CUT train_lm {cfg.name}: steps 200 -> {LM_TRAIN_STEPS} "
+        f"(a checkpoint at 100, then resumed); batch 8, seq 64, all "
+        f"{cfg.n_layers} layers at full width, {cfg.dtype}")
+    runs = []
+    for _ in range(2):
+        marks, losses = [], {}
+
+        def on_step(i, m, marks=marks, losses=losses):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append(ev)
+            losses[i] = m["loss"]
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, out = quiet(lambda: train_lm.train(
+            cfg, params, LM_TRAIN_STEPS, work, on_step=on_step))
+        torch.cuda.synchronize()
+        runs.append((state, {i: float(v) for i, v in losses.items()}, out,
+                     time.perf_counter() - t0, marks,
+                     torch.cuda.max_memory_allocated() / 2**30))
+    (straight, sl, out0, secs, marks, peak), (resumed, rl, out1, rsecs, _,
+                                              rpeak) = runs
+    if "resumed" in out0 or "resumed from step 100" not in out1 or \
+            sorted(rl) != [100, 101]:
+        raise AssertionError(f"train_lm did not resume at 100: {out1}")
+    if not all(math.isfinite(v) for v in sl.values()):
+        raise AssertionError(f"train_lm: a loss is not finite: {sl}")
+    for i in (100, 101):
+        same = rl[i] == sl[i]          # float32 values: exact in a float
+        log(f"check train_lm step {i} loss resumed vs straight: "
+            f"{rl[i]!r} / {sl[i]!r} {'ok' if same else 'FAIL'}")
+        if not same:
+            raise AssertionError(f"train_lm: resumed step {i}'s loss is not "
+                                 f"the straight run's")
+    same_bits(f"{cfg.name} train_lm resumed at 100 vs straight", resumed,
+              straight)
+    del resumed, straight
+    stepdir = os.path.join(work, "step_00000100")
+    nbytes = sum(os.path.getsize(os.path.join(stepdir, f))
+                 for f in os.listdir(stepdir))
+    shutil.rmtree(work)
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    med = statistics.median(step_ms)
+    # step 0's loss against the float32 loss of the same params and batch
+    ds, _ = make_loader(cfg.vocab, 64, 8, device=dev)
+    with torch.no_grad():
+        want, _ = loss_fn(tree_map(lambda t: t.float(), params),
+                          dataclasses.replace(cfg, dtype="float32"),
+                          ds.batch_at(0), remat=False)
+    hold(f"{cfg.name} train_lm step-0 loss vs float32 loss_fn (relative)",
+         abs(sl[0] - float(want)) / abs(float(want)), 2.0 ** -8)
+    log("EXAMPLE " + json.dumps({
+        "example": "train_lm", "arch": cfg.name, "dtype": cfg.dtype,
+        "steps": LM_TRAIN_STEPS, "batch": 8, "seq": 64, "seconds": secs,
+        "step_ms_median": med, "tokens_per_s": 8 * 64 / med * 1e3,
+        "peak_GiB": peak, "checkpoint_bytes": nbytes,
+        "resumed_seconds": rsecs, "resumed_peak_GiB": rpeak,
+        "loss": [sl[0], sl[20], sl[100], sl[101]],
+        "loss0_float32": float(want)}))
+    part_done("b train_lm")
+
+    # (d) the reduced CLIs on the card, in this process
+    t0 = time.perf_counter()
+    quiet(lambda: serve_lm.main([]))
+    serve_s = time.perf_counter() - t0
+    cli_dir = os.path.join(REPO, "src", "repro_torch", "_build",
+                           "train_lm_cli")
+    shutil.rmtree(cli_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    _, out = quiet(lambda: train_lm.main(["--ckpt-dir", cli_dir]))
+    train_s = time.perf_counter() - t0
+    shutil.rmtree(cli_dir)
+    if "resumed" in out or not out.rstrip().endswith("done"):
+        raise AssertionError(f"train_lm.main: {out}")
+    log("EXAMPLE " + json.dumps({
+        "example": "serve_lm.main, train_lm.main (reduced)",
+        "serve_seconds": serve_s, "train_seconds": train_s}))
+    counts = native.launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"the LM examples launched kernels of this "
+                             f"package: {counts}")
+    part_done("d reduced CLIs")
+
+    # (c) the plan-invariants lane on the card
+    lane_check(drv)
+    part_done("c plan-invariants lane")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3698,6 +3963,10 @@ def main(argv=None) -> int:
     # -- 14. the example applications: quickstart, CP-ALS, HOOI, completion
     example_apps(coo, dev, args.seed, drv)
     phase_done("14 examples")
+
+    # -- 15. the LM examples at smollm-135m's full width; the lane ------ #
+    lm_examples(dev, args.seed, drv)
+    phase_done("15 LM examples, plan-invariants lane")
 
     missing = [s for s, n in drv.launches.items() if n == 0]
     if missing:

@@ -1689,3 +1689,20 @@ def test_sharded_train_step_on_two_gloo_ranks_matches_one_device(cuda,
                else 2e-4 * scale + 1e-7)
         err = float((a - b).abs().max()) if b.numel() else 0.0
         assert err <= tol, (key, err, tol)
+
+
+def test_plan_invariants_lane_executes_every_nest_on_the_card(cuda, capsys):
+    """The verifier-versus-engines lane with its operands on the card:
+    every enumerated nest runs through the ``cuda`` and ``cuda-splitk``
+    engines' kernels against the dense oracle, and each of K1, K2, K4
+    and the combine launches."""
+    from repro_torch.analysis import plan_invariants
+    native.reset_launch_counts()
+    rc = plan_invariants.main(["--exec-budget", "72", "--device", "cuda"])
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    assert "parity: 72 nests verified, 72 executed" in out
+    assert "battery: 25 seeded plans" in out and "FAIL" not in out
+    counts = native.launch_counts()
+    assert all(counts[s] for s in ("reduce", "product", "splitk",
+                                   "combine")), counts

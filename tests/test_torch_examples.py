@@ -28,12 +28,26 @@ both sides:
 
 Each port ``main`` also runs on the CPU with its own asserts, and
 ``cp_als`` with ``--autotune`` searches cold and loads warm.
+
+The LM drivers run from the reference's params (``model_init(PRNGKey(0))``
+of reduced smollm-135m, float32, carried across by ``params_from_jax``):
+
+* ``serve_lm``: the printed ``req{i}`` lines equal the reference
+  ``main``'s (the same tokens);
+* ``train_lm``, 3 steps: each step's loss and lr within 1e-5 relative
+  of the reference's (recorded from its jitted step), and the same
+  ``arch=... params=...M`` header;
+* ``train_lm`` resumed: the reference writes its checkpoint at step 100
+  (``--steps 101``); the port resumes from it to 102 (``resumed from
+  step 100``) and its steps 100 and 101 are within 1e-5 relative of the
+  reference's own resumed run.
 """
 import dataclasses
 import importlib.util
 import os
 import re
 import runpy
+import sys
 
 import numpy as np
 import pytest
@@ -45,8 +59,11 @@ import jax.numpy as jnp  # noqa: E402
 
 import repro  # noqa: E402
 from repro_torch import random_sparse  # noqa: E402
+from repro_torch.configs import get_reduced  # noqa: E402
 from repro_torch.examples import (cp_als, quickstart,  # noqa: E402
-                                  tensor_completion, tucker_hooi)
+                                  serve_lm, tensor_completion, train_lm,
+                                  tucker_hooi)
+from repro_torch.models import params_from_jax  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -222,3 +239,94 @@ def test_cp_als_autotune_searches_cold_and_loads_warm(tmp_path, capsys):
         assert re.search(rf"mode {name}: plan from search \(\d+ timed\)",
                          cold), cold
         assert f"mode {name}: plan from cache" in warm, warm
+
+
+@pytest.fixture(scope="module")
+def lm_params():
+    """Reduced smollm-135m's params as the reference's LM examples draw
+    them, and the port's copy of them on the CPU."""
+    from repro.models import model_init as j_model_init
+    jp, _ = j_model_init(jax.random.PRNGKey(0), repro.configs.get_reduced(
+        "smollm-135m"))
+    return params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
+
+
+def test_serve_lm_prints_the_reference_tokens(lm_params, capsys):
+    _reference("serve_lm").main()
+    want = capsys.readouterr().out
+    done = serve_lm.serve(get_reduced("smollm-135m"), lm_params)
+    got = capsys.readouterr().out
+    assert len(done) == 6 and all(len(r.out) == 12 for r in done)
+    assert all(type(t) is int for r in done for t in r.out)
+    assert got == want
+    assert len(re.findall(r"^req\d: prompt=", got, re.M)) == 6
+
+
+def _recording_reference(monkeypatch):
+    """The reference ``train_lm`` whose jitted step records each step's
+    loss and lr (in call order)."""
+    ref = _reference("train_lm")
+    seen = []
+
+    def jit(fn, **kw):
+        step = jax.jit(fn, **kw)
+
+        def run(state, batch):
+            state, m = step(state, batch)
+            seen.append((float(m["loss"]), float(m["lr"])))
+            return state, m
+        return run
+
+    shim = type("jax", (), {"jit": staticmethod(jit),
+                            "random": jax.random, "tree": jax.tree})
+    monkeypatch.setattr(ref, "jax", shim)
+    return ref, seen
+
+
+def _port_train(params, steps, ckpt_dir):
+    seen = {}
+    train_lm.train(get_reduced("smollm-135m"), params, steps, str(ckpt_dir),
+                   on_step=lambda i, m: seen.__setitem__(
+                       i, (float(m["loss"]), float(m["lr"]))))
+    return seen
+
+
+def _within(got, want):
+    for (gl, glr), (wl, wlr) in zip(got, want):
+        assert abs(gl - wl) <= 1e-5 * abs(wl), (gl, wl)
+        assert abs(glr - wlr) <= 1e-5 * abs(wlr), (glr, wlr)
+
+
+def test_train_lm_matches_the_reference(lm_params, monkeypatch, capsys,
+                                        tmp_path):
+    ref, want = _recording_reference(monkeypatch)
+    monkeypatch.setattr(sys, "argv", ["train_lm", "--steps", "3",
+                                      "--ckpt-dir", str(tmp_path / "ref")])
+    ref.main()
+    ref_out = capsys.readouterr().out
+    got = _port_train(lm_params, 3, tmp_path / "port")
+    capsys.readouterr()
+    assert sorted(got) == [0, 1, 2] and len(want) == 3
+    _within([got[i] for i in range(3)], want)
+    train_lm.main(["--steps", "3", "--ckpt-dir", str(tmp_path / "main"),
+                   "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert out.splitlines()[0] == ref_out.splitlines()[0]
+    assert out.splitlines()[0].startswith("arch=smollm-135m (reduced) ")
+    assert out.splitlines()[-1] == "done"
+
+
+def test_train_lm_resumes_from_the_reference_checkpoint(
+        lm_params, monkeypatch, capsys, tmp_path):
+    ref, want = _recording_reference(monkeypatch)
+    ckpt_dir = str(tmp_path / "ckpt")
+    for steps in ("101", "102"):
+        monkeypatch.setattr(sys, "argv", ["train_lm", "--steps", steps,
+                                          "--ckpt-dir", ckpt_dir])
+        ref.main()
+    ref_out = capsys.readouterr().out
+    assert "resumed from step 100" in ref_out and len(want) == 103
+    got = _port_train(lm_params, 102, ckpt_dir)
+    assert "resumed from step 100" in capsys.readouterr().out
+    assert sorted(got) == [100, 101]
+    _within([got[100], got[101]], want[-2:])

@@ -159,7 +159,8 @@ def test_the_training_slice_is_checked_by_the_import_scan():
 
 EXAMPLES = ("examples/__init__.py", "examples/quickstart.py",
             "examples/cp_als.py", "examples/tucker_hooi.py",
-            "examples/tensor_completion.py")
+            "examples/tensor_completion.py", "examples/serve_lm.py",
+            "examples/train_lm.py")
 # the port's counterparts of scripts/check_example_imports.py's prefixes
 FACADE_COVERED = tuple(f"repro_torch.{p}" for p in (
     "core", "autotune", "sparse", "kernels", "distributed"))
@@ -191,14 +192,16 @@ def test_examples_import_only_through_the_facade(mod):
                            for p in FACADE_COVERED), (mod, node.lineno, n)
 
 
-def test_fresh_interpreter_runs_the_examples_without_jax_or_repro():
+def test_fresh_interpreter_runs_the_examples_without_jax_or_repro(
+        tmp_path):
     """Each example, run as ``python -m`` runs it with ``--device cpu``,
     passes its own asserts and imports neither JAX nor the JAX package."""
-    code = """
+    code = f"""
 import runpy, sys
 for argv in (["quickstart"], ["cp_als", "--steps", "2"],
              ["tucker_hooi", "--steps", "2"],
-             ["tensor_completion", "--steps", "40"]):
+             ["tensor_completion", "--steps", "40"], ["serve_lm"],
+             ["train_lm", "--steps", "3", "--ckpt-dir", {str(tmp_path)!r}]):
     sys.argv = [argv[0]] + argv[1:] + ["--device", "cpu"]
     runpy.run_module("repro_torch.examples." + argv[0], run_name="__main__",
                      alter_sys=True)
@@ -213,6 +216,8 @@ print("CLEAN")
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "completion converged" in out.stdout and "HOOI done" in out.stdout
+    assert "served 6 requests" in out.stdout
+    assert "arch=smollm-135m (reduced) params=" in out.stdout
     assert "CLEAN" in out.stdout
 
 
@@ -500,3 +505,21 @@ def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
         assert why in out.stderr
+
+
+def test_lm_examples_and_the_lane_default_to_the_card(tmp_path, capsys):
+    """With no ``--device`` the LM examples and the plan-invariants lane
+    put their tensors on the card, and raise where there is none."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is here: the defaults run on it")
+    from repro_torch.analysis import plan_invariants
+    from repro_torch.examples import serve_lm, train_lm
+    for run in (lambda: serve_lm.main([]),
+                lambda: train_lm.main(["--steps", "1", "--ckpt-dir",
+                                       str(tmp_path)]),
+                lambda: plan_invariants.main([])):
+        with pytest.raises((RuntimeError, AssertionError),
+                           match="CUDA|cuda"):
+            run()
+    assert "served" not in capsys.readouterr().out
+    assert not os.listdir(tmp_path)
